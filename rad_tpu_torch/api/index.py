@@ -1,0 +1,209 @@
+"""HNSWIndex: the usearch-style index facade.
+
+The surface of ``rad_tpu.api.index.HNSWIndex`` (``add``/``build``/
+``search``/``save``/``load`` and the usearch-like properties):
+
+    index = HNSWIndex(ndim=1024, connectivity=16)
+    index.add(keys, packed_fps)
+    index.build()                      # exact all-pairs builder
+    index.save("library.rad.npz"); HNSWIndex.load(path)
+
+``device`` picks where the build runs; ``None`` means the first CUDA
+device when torch sees one, else the CPU (where the kernels' plain twins
+run), and says so in a warning. Both ``backend="auto"`` and ``"exact"`` run
+:func:`~rad_tpu_torch.build.exact.build_hnsw_exact`; the reference's host,
+native and beam builders are not ported.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from rad_tpu_torch.fp.pack import coerce_packed
+from rad_tpu_torch.graph.storage import HNSWGraph, LayerStats, host_keys_view
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["HNSWIndex", "resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the first CUDA device if torch sees one, else the
+    CPU — with a warning, since the CPU runs the kernels' plain twins."""
+    if device is not None:
+        return torch.device(device)
+    if torch.cuda.is_available():
+        return torch.device("cuda:0")
+    logger.warning("no CUDA device visible and no device given: running on "
+                   "the CPU with the kernels' plain torch twins")
+    return torch.device("cpu")
+
+
+class HNSWIndex:
+    def __init__(
+        self,
+        ndim: int = 1024,
+        dtype: str = "b1",
+        metric: str = "tanimoto",
+        connectivity: int = 16,
+        expansion_add: int = 200,
+        expansion_search: int = 64,
+        backend: str = "auto",
+        seed: int = 0,
+        device=None,
+    ) -> None:
+        if dtype != "b1":
+            raise ValueError("only packed-bit 'b1' storage is supported")
+        if metric != "tanimoto":
+            raise ValueError("only the 'tanimoto' metric is supported")
+        self.ndim = ndim
+        self.metric = metric
+        self.connectivity = connectivity
+        self.expansion_add = expansion_add
+        self.expansion_search = expansion_search
+        self.backend = backend
+        self.seed = seed
+        self.device = resolve_device(device)
+        self._pending_keys: List[np.ndarray] = []
+        self._pending_fps: List[np.ndarray] = []
+        self._graph: Optional[HNSWGraph] = None
+
+    # ------------------------------------------------------------------ add
+    def add(self, keys, vectors) -> None:
+        """Queue fingerprints for graph construction: ``[N, ndim/32]``
+        uint32 packed rows, ``[N, ndim]`` 0/1 bits, or ``[N, ndim/8]``
+        uint8 ``np.packbits`` rows, with int64 user keys. Adding to a built
+        or loaded graph folds its rows back in and rebuilds on the next
+        ``build()``."""
+        if self._graph is not None and not self._pending_fps:
+            self._pending_fps.append(
+                np.ascontiguousarray(np.asarray(self._graph.packed)))
+            self._pending_keys.append(np.asarray(self._graph.keys))
+        vectors = coerce_packed(vectors, self.ndim)
+        keys = np.atleast_1d(np.asarray(keys, dtype=np.int64))
+        if keys.shape[0] != vectors.shape[0]:
+            raise ValueError("keys and vectors length mismatch")
+        self._pending_keys.append(keys)
+        self._pending_fps.append(vectors)
+        self._graph = None
+
+    # ---------------------------------------------------------------- build
+    def build(self, backend: str | None = None, **kwargs) -> HNSWGraph:
+        """Construct the graph from all added vectors (extra ``kwargs``
+        go to the builder)."""
+        backend = backend or self.backend
+        if backend not in ("auto", "exact"):
+            raise NotImplementedError(
+                f"build backend {backend!r} is not ported; 'auto'/'exact' "
+                f"run the exact all-pairs builder (ROADMAP Queue 1 item 11)")
+        if self._graph is not None:
+            return self._graph
+        if not self._pending_fps:
+            raise RuntimeError("no vectors added")
+        fps = np.concatenate(self._pending_fps, axis=0)
+        keys = np.concatenate(self._pending_keys, axis=0)
+        if len(np.unique(keys)) != len(keys):
+            raise ValueError("duplicate keys (multi-key indexes unsupported)")
+        from rad_tpu_torch.build.exact import build_hnsw_exact
+
+        t0 = time.perf_counter()
+        self._graph = build_hnsw_exact(
+            fps, keys=keys, connectivity=self.connectivity,
+            expansion_add=self.expansion_add, ndim=self.ndim, seed=self.seed,
+            device=self.device, **kwargs)
+        logger.info("built HNSW over %d vectors in %.2fs (exact, %s)",
+                    len(keys), time.perf_counter() - t0, self.device)
+        return self._graph
+
+    @property
+    def graph(self) -> HNSWGraph:
+        if self._graph is None:
+            self.build()
+        return self._graph
+
+    # --------------------------------------------------------------- search
+    def search(self, queries, k: int = 10,
+               expansion_search: int | None = None, exact: bool = False):
+        """Batched k-NN by Tanimoto distance → ``(dists [B, k], keys [B,
+        k])``. Only ``exact=True`` (brute force) is ported; the graph beam
+        search is ROADMAP Queue 1 item 8."""
+        if not exact:
+            raise NotImplementedError(
+                "graph beam search is not ported yet (ROADMAP Queue 1 item "
+                "8); pass exact=True for brute force")
+        from rad_tpu_torch.fp.pack import to_torch_packed
+        from rad_tpu_torch.fp.tanimoto import bruteforce_topk
+
+        g = self.graph
+        q = to_torch_packed(coerce_packed(queries, self.ndim), self.device)
+        db = to_torch_packed(np.asarray(g.packed), self.device)
+        d, ids = bruteforce_topk(q, db, k)
+        d, ids = d.cpu().numpy(), ids.cpu().numpy()
+        kv = host_keys_view(g.keys)
+        keys = np.where(ids >= 0, np.asarray(kv[np.maximum(ids, 0)]), -1)
+        return d, keys
+
+    # ---------------------------------------------------- usearch-like API
+    def __len__(self) -> int:
+        if self._graph is not None:
+            return len(self._graph)
+        return int(sum(len(k) for k in self._pending_keys))
+
+    @property
+    def size(self) -> int:
+        return len(self)
+
+    @property
+    def max_level(self) -> int:
+        return self.graph.max_level
+
+    @property
+    def dtype(self) -> str:
+        return "b1"
+
+    @property
+    def multi(self) -> bool:
+        return False
+
+    @property
+    def capacity(self) -> int:
+        return len(self)
+
+    @property
+    def memory_usage(self) -> int:
+        return self.graph.memory_usage
+
+    @property
+    def levels_stats(self) -> List[LayerStats]:
+        return self.graph.levels_stats()
+
+    def get_neighbors(self, node_id: int, level: int) -> List[int]:
+        return self.graph.get_neighbors(node_id, level)
+
+    def get_top_level_nodes(self) -> List[int]:
+        return self.graph.get_top_level_nodes()
+
+    def get_node_ids_from_keys(self, keys: Sequence[int]) -> List[int]:
+        return self.graph.get_node_ids_from_keys(keys)
+
+    # -------------------------------------------------------------- persist
+    def save(self, path: str) -> None:
+        self.graph.save(path)
+
+    @classmethod
+    def load(cls, path: str, view: bool = True, **kwargs) -> "HNSWIndex":
+        """Load a persisted index; ``view=True`` memory-maps the arrays
+        (usearch ``Index(path=..., view=True)``)."""
+        graph = HNSWGraph.load(path, mmap=view)
+        return cls.from_graph(graph, **kwargs)
+
+    @classmethod
+    def from_graph(cls, graph: HNSWGraph, **kwargs) -> "HNSWIndex":
+        idx = cls(ndim=graph.ndim, connectivity=graph.connectivity, **kwargs)
+        idx._graph = graph
+        return idx

@@ -1,0 +1,127 @@
+"""rad_tpu_torch Tanimoto kernels against the Pallas kernels.
+
+On the CPU the wrappers run their plain twins; the JAX side runs the
+Pallas kernels in interpret mode, as tests/test_kernels.py does. Bucket
+keys must be array-equal (they are the bits of the f32 similarity); the
+distance matrix is held to atol 1e-6 — the f32 operation order is the
+same, so equality is expected, and the tolerance only absorbs one ulp
+should XLA's CPU code reorder. The ``gpu`` tests compare each CUDA kernel
+with its twin on the card and skip without one.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from rad_tpu.fp import random_fingerprints
+from rad_tpu.fp.kernels import (decode_bucket_keys as ref_decode,
+                                tanimoto_bucketmin_pallas,
+                                tanimoto_matrix_pallas)
+from rad_tpu.fp.tanimoto import tanimoto_matrix as ref_swar_matrix
+from rad_tpu_torch.fp import kernels
+from rad_tpu_torch.fp.pack import popcount_rows, to_torch_packed
+from test_kernels import _ref_bucket_keys
+
+
+@pytest.fixture(scope="module")
+def data():
+    db = random_fingerprints(1024, n_bits=256, density=0.15, seed=41)
+    q = random_fingerprints(256, n_bits=256, density=0.15, seed=42)
+    db[9] = q[4]          # exact duplicates and empties hit the edge cases
+    db[10] = 0
+    q[5] = 0
+    return q, db
+
+
+@pytest.mark.parametrize("bucket", [32, 64])
+def test_bucket_keys_array_equal_to_pallas_and_model(data, bucket):
+    q, db = data
+    ref = np.asarray(tanimoto_bucketmin_pallas(
+        jnp.asarray(q), jnp.asarray(db), bucket=bucket, q_tile=128,
+        n_tile=256, interpret=True))
+    before = kernels.tanimoto_bucketmin.launches
+    out = kernels.tanimoto_bucketmin(to_torch_packed(q, "cpu"),
+                                     to_torch_packed(db, "cpu"), bucket)
+    assert kernels.tanimoto_bucketmin.launches == before  # twin: no launch
+    assert out.shape == (256, 1024 // bucket) and out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), ref, err_msg=f"b={bucket}")
+    np.testing.assert_array_equal(out.numpy(), _ref_bucket_keys(q, db,
+                                                                bucket))
+    d, gid = kernels.decode_bucket_keys(out, bucket)
+    rd, rgid = ref_decode(jnp.asarray(ref), bucket)
+    np.testing.assert_array_equal(d.numpy(), np.asarray(rd))
+    np.testing.assert_array_equal(gid.numpy(), np.asarray(rgid))
+
+
+def test_matrix_matches_pallas_and_swar(data):
+    q, db = data
+    ref = np.asarray(tanimoto_matrix_pallas(
+        jnp.asarray(q[:128]), jnp.asarray(db[:512]), q_tile=128,
+        n_tile=256, interpret=True))
+    tq, tdb = to_torch_packed(q[:128], "cpu"), to_torch_packed(db[:512],
+                                                               "cpu")
+    before = kernels.tanimoto_matrix.launches
+    out = kernels.tanimoto_matrix(tq, tdb, popcount_rows(tq),
+                                  popcount_rows(tdb))
+    assert kernels.tanimoto_matrix.launches == before
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
+    swar = np.asarray(ref_swar_matrix(jnp.asarray(q[:128]),
+                                      jnp.asarray(db[:512])))
+    np.testing.assert_array_equal(out.numpy(), swar)
+
+
+def test_wrapper_validation(data):
+    q, db = data
+    tq, tdb = to_torch_packed(q, "cpu"), to_torch_packed(db, "cpu")
+    with pytest.raises(ValueError):
+        kernels.tanimoto_bucketmin(tq, tdb, bucket=48)
+    with pytest.raises(NotImplementedError):
+        kernels.tanimoto_bucketmin(tq, tdb, approx=True)
+    with pytest.raises(TypeError):
+        kernels.tanimoto_matrix(tq.to(torch.int64), tdb.to(torch.int64))
+    with pytest.raises(ValueError):
+        kernels.tanimoto_matrix(tq, tdb[:, :4])
+
+
+def test_exact_fp32_matmul_restores_flags():
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    with kernels.exact_fp32_matmul():
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) == before
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda:0")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bits,nq,nn", [(1024, 300, 4096), (256, 64, 640),
+                                         (2048, 70, 192)])
+def test_cuda_kernels_equal_twins(cuda, n_bits, nq, nn):
+    q = random_fingerprints(nq, n_bits=n_bits, density=0.12, seed=1)
+    db = random_fingerprints(nn, n_bits=n_bits, density=0.12, seed=2)
+    db[3] = q[0]
+    tq, tdb = to_torch_packed(q, cuda), to_torch_packed(db, cuda)
+    launches = (kernels.tanimoto_matrix.launches,
+                kernels.tanimoto_bucketmin.launches)
+    out = kernels.tanimoto_matrix(tq, tdb)
+    torch.cuda.synchronize()
+    plain = kernels.tanimoto_matrix_plain(tq, tdb)
+    assert torch.equal(out, plain)
+    assert torch.equal(out[:, :nn - 1].contiguous(),
+                       kernels.tanimoto_matrix(tq, tdb[:nn - 1].contiguous()))
+    for bucket in (1, 16, 32, 64):
+        keys = kernels.tanimoto_bucketmin(tq, tdb, bucket)
+        torch.cuda.synchronize()
+        assert torch.equal(keys, kernels.tanimoto_bucketmin_plain(
+            tq, tdb, bucket)), bucket
+    assert kernels.tanimoto_matrix.launches == launches[0] + 2
+    assert kernels.tanimoto_bucketmin.launches == launches[1] + 4
