@@ -7,9 +7,10 @@ Phases, one status line each (plus detail lines):
 
 1. device: ``nvidia-smi`` name and power limit, torch/CUDA versions, and
    the kernels built by nvcc for sm_90a from ``rad_tpu_torch/csrc``;
-2. each CUDA kernel against its plain-torch twin on the card, at the main
-   path's shapes (1024-bit fingerprints): array-equal, and both timed with
-   CUDA events;
+2. each CUDA kernel against its plain-torch twin on the card, at the
+   shapes its path gives it (1024-bit fingerprints; 2,048 candidates over
+   the 1M graph's 1,000,000 ids and 1,066,610 rows): array-equal, and both
+   timed with CUDA events;
 3. a 16,384-row library built with ``build_hnsw_exact`` on the card and on
    the CPU (twins): edge-identical on every layer; then the same traversal
    on both: identical scoring order;
@@ -18,7 +19,14 @@ Phases, one status line each (plus detail lines):
    ``create_local_traverser`` → ``prime`` → ``traverse(10_000)`` →
    ``get_best_molecules(100)``, with launch counters proving both kernels
    ran, and the result checked (no duplicate ids, top-100 recovery at
-   least 5x random).
+   least 5x random);
+5. the device-scored traversal on phase 4's graph, full width and depth:
+   (a) ``prime`` + ``fused_run(batch=64, n_to_score=100_000)`` with the
+   Tanimoto-to-target scorer, once through the fused candidate kernels
+   K1/K2 and once through the plain chain: identical states; (b) the same
+   pair with ``narrow_width=1024``, where K2 sees fewer to-score ids than
+   candidates; (c) ``make_device_run`` with a score-table scorer at batch
+   8: the same scoring order as phase 4's host-scored traversal.
 
 The last three lines are the card's ``nvidia-smi`` line, a JSON object
 describing each kernel, and ``{"ok": true, "device": {...}}``. Any failed
@@ -43,21 +51,36 @@ from rad_tpu_torch.build.exact import build_hnsw_exact
 from rad_tpu_torch.fp import kernels
 from rad_tpu_torch.fp.pack import (popcount_rows, random_fingerprints,
                                    to_torch_packed)
+from rad_tpu_torch.fp.tanimoto import tanimoto_rows_to_target
 from rad_tpu_torch.store import InMemorySmilesStore
 from rad_tpu_torch.synthetic import make_library
+from rad_tpu_torch.traverse import candidate_ops
+from rad_tpu_torch.traverse import device as tdev
 from rad_tpu_torch.traverse.driver import DeviceTraverser
 
 KERNELS = {
     "tanimoto_bucketmin": dict(
         wrapper=kernels.tanimoto_bucketmin,
+        source="rad_tpu_torch/csrc/tanimoto.cu",
         replaces="rad_tpu/fp/kernels.py:209"),
     "tanimoto_matrix": dict(
         wrapper=kernels.tanimoto_matrix,
+        source="rad_tpu_torch/csrc/tanimoto.cu",
         replaces="rad_tpu/fp/kernels.py:101"),
+    "candidate_filter": dict(
+        wrapper=candidate_ops.candidate_filter,
+        source="rad_tpu_torch/csrc/candidates.cu",
+        replaces="rad_tpu/traverse/pallas_ops.py:49"),
+    "integrate_candidates": dict(
+        wrapper=candidate_ops.integrate_candidates,
+        source="rad_tpu_torch/csrc/candidates.cu",
+        replaces="rad_tpu/traverse/pallas_ops.py:102"),
 }
-SOURCE = "rad_tpu_torch/csrc/tanimoto.cu"
 N = 1_000_000            # main-path library: molecules x 1024 bits
 N_TO_SCORE = N // 100    # main-path budget: 1% scored
+R = 1_066_610            # the 1M graph's (node, level) rows
+K = 64 * 32              # candidates per device-scored step: batch x M0
+TARGET = 17              # phase 5's target: one library row
 
 
 class CheckFailed(RuntimeError):
@@ -153,6 +176,84 @@ def phase_kernels(dev) -> dict:
                                       plain_ms=plain_ms)
     print(f"[2 kernels] tanimoto_matrix 8192x8192: array-equal to plain; "
           f"{ms:.3f} ms vs plain {plain_ms:.3f} ms", flush=True)
+    results.update(_candidate_kernels(dev))
+    return results
+
+
+def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    if torch.equal(a, b):
+        return 0.0
+    d = (a.double() - b.double()).abs().nan_to_num(nan=float("inf"))
+    return float(d.max())
+
+
+def _candidate_case(rng, n: int, k: int, n_rows: int):
+    """The recipe of tests/test_pallas_ops.py make_case: ~20 % invalid
+    candidates, half of the second half copied from the first (duplicates),
+    about half the ids scored, 40 % of the rows enqueued."""
+    cand = rng.integers(-1, n, size=k).astype(np.int32)
+    cand[rng.random(k) < 0.2] = -1
+    cand[k // 2:] = np.where(rng.random(k - k // 2) < 0.5,
+                             cand[: k - k // 2], cand[k // 2:])
+    scored = rng.random(n) < 0.5
+    scores = np.where(scored, rng.random(n), np.inf).astype(np.float32)
+    enqueued = rng.random(n_rows) < 0.4
+    row = np.minimum(np.maximum(cand, 0) + rng.integers(0, 3, size=k),
+                     n_rows - 1).astype(np.int32)
+    return cand, scored, scores, enqueued, row
+
+
+def _candidate_kernels(dev) -> dict:
+    rng = np.random.default_rng(5)
+    cand, scored, scores, enqueued, row = [
+        torch.from_numpy(a).to(dev)
+        for a in _candidate_case(rng, N, K, R)]
+    ts = candidate_ops.candidate_filter(cand, scored)
+    torch.cuda.synchronize()
+    plain_ts = candidate_ops.candidate_filter_plain(cand, scored)
+    err = _max_abs_err(ts, plain_ts)
+    check(err == 0.0 and int((ts >= 0).sum()) > 0,
+          f"candidate_filter != plain (max abs err {err})")
+    ms, plain_ms = _turns(
+        lambda: candidate_ops.candidate_filter(cand, scored),
+        lambda: candidate_ops.candidate_filter_plain(cand, scored))
+    results = {"candidate_filter": dict(max_abs_err=err, ms=ms,
+                                        plain_ms=plain_ms)}
+    print(f"[2 kernels] candidate_filter K={K} over N={N:,}: array-equal to "
+          f"plain ({int((ts >= 0).sum())} ids); {ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms", flush=True)
+
+    new_scores = torch.rand(K, device=dev)
+    errs = {}
+    for kt in (K, K // 2):          # full width, and narrow_width's prefix
+        tables = [t.clone() for t in (scored, scores, enqueued)]
+        plain_tables = [t.clone() for t in (scored, scores, enqueued)]
+        got = candidate_ops.integrate_candidates(
+            ts[:kt], new_scores[:kt], cand, row, *tables)
+        torch.cuda.synchronize()
+        want = candidate_ops.integrate_candidates_plain(
+            ts[:kt], new_scores[:kt], cand, row, *plain_tables)
+        for name, g, w in zip(["scored", "scores", "enqueued", "fresh",
+                               "push", "cand_score"], got, want):
+            errs[f"{name}@{kt}"] = _max_abs_err(g, w)
+        check(bool(got[3].any()) and bool(got[4].any()),
+              "integrate_candidates case has no fresh id or no push")
+    err = max(errs.values())
+    check(err == 0.0, f"integrate_candidates != plain: {errs}")
+    # every timed call gets its own copy of the tables, as a step would
+    # find them (each of _turns' four windows makes 2 + 10 calls)
+    copies = iter([[t.clone() for t in (scored, scores, enqueued)]
+                   for _ in range(48)])
+    ms, plain_ms = _turns(
+        lambda: candidate_ops.integrate_candidates(
+            ts, new_scores, cand, row, *next(copies)),
+        lambda: candidate_ops.integrate_candidates_plain(
+            ts, new_scores, cand, row, *next(copies)))
+    results["integrate_candidates"] = dict(max_abs_err=err, ms=ms,
+                                           plain_ms=plain_ms)
+    print(f"[2 kernels] integrate_candidates kt=kc={K} (and kt={K // 2}), "
+          f"N={N:,}, R={R:,}: every output and table array-equal to plain; "
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
     return results
 
 
@@ -211,8 +312,7 @@ def phase_main_path(dev, n: int, n_to_score: int) -> dict:
     def scoring_fn(smiles: str) -> float:
         return float(true_scores[int(smiles[4:])])
 
-    for k in KERNELS.values():
-        k["wrapper"].launches = 0
+    _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index = HNSWIndex(ndim=1024, connectivity=16, device=dev)
@@ -238,8 +338,16 @@ def phase_main_path(dev, n: int, n_to_score: int) -> dict:
         mols = traverser.get_molecules()
         dev_stats = traverser.get_traversal_stats()["device"]
         traverser.shutdown()
-        launches = {name: k["wrapper"].launches
-                    for name, k in KERNELS.items()}
+        launches = {name: KERNELS[name]["wrapper"].launches
+                    for name in ("tanimoto_bucketmin", "tanimoto_matrix")}
+        graph = loaded.graph
+        context = dict(
+            dg=tdev.prepare_device_graph(graph, dev),
+            packed=to_torch_packed(np.asarray(graph.packed), dev),
+            pops=torch.from_numpy(np.asarray(graph.popcounts)
+                                  .astype(np.int32)).to(dev),
+            keys=np.asarray(graph.keys), true_scores=true_scores,
+            n_top=graph.layer_sizes[graph.max_level], mols=mols)
 
     for name, count in launches.items():
         check(count > 0, f"{name} never launched on the main path")
@@ -270,6 +378,103 @@ def phase_main_path(dev, n: int, n_to_score: int) -> dict:
           f"{dev_stats['frontier_dropped']}); "
           f"top-100 found {found} ({found / max(random_expect, 1e-9):.1f}x "
           f"random); launches {launches}", flush=True)
+    return launches, context
+
+
+def _reset_counts() -> None:
+    for k in KERNELS.values():
+        k["wrapper"].launches = 0
+    candidate_ops.integrate_candidates.narrow_launches = 0
+
+
+def _states_equal(a, b) -> bool:
+    ra, rb = (tdev.state_to_reference_arrays(s) for s in (a, b))
+    return all(np.array_equal(ra[k], rb[k]) for k in ra)
+
+
+def phase_device_scored(dev, ctx: dict) -> dict:
+    dg, packed, pops, n_top = ctx["dg"], ctx["packed"], ctx["pops"], \
+        ctx["n_top"]
+    target, tpop = packed[TARGET], pops[TARGET]
+    seeds = torch.arange(n_top, dtype=torch.int32, device=dev)
+    seed_scores = tanimoto_rows_to_target(packed[:n_top], pops[:n_top],
+                                          target, tpop)
+    n_to_score = 100_000
+
+    def run(fused: bool, narrow):
+        st = tdev.prime(tdev.init_state(dg), dg, seeds, seed_scores)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = tdev.fused_run(st, dg, packed, pops, target, tpop, n_to_score,
+                            batch=64, narrow_width=narrow,
+                            fused_candidates=fused)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = int(st.n_scored)
+        print(f"[5{'b' if narrow else 'a'} device-scored] fused_run batch "
+              f"64 narrow_width={narrow} fused_candidates={fused}: {n:,} "
+              f"scored in {int(st.n_steps)} steps, {dt:.2f} s "
+              f"({n / dt:,.0f} scored/s, {dt / int(st.n_steps) * 1e3:.3f} "
+              f"ms/step)", flush=True)
+        return st
+
+    _reset_counts()
+    on = run(True, None)
+    off = run(False, None)
+    narrow_before = candidate_ops.integrate_candidates.narrow_launches
+    on_n = run(True, 1024)
+    off_n = run(False, 1024)
+    launches = {name: KERNELS[name]["wrapper"].launches
+                for name in ("candidate_filter", "integrate_candidates")}
+    narrow = candidate_ops.integrate_candidates.narrow_launches \
+        - narrow_before
+    for name, count in launches.items():
+        check(count > 0, f"{name} never launched on the device-scored path")
+    check(narrow > 0, "integrate_candidates never ran with kt < kc in 5b")
+    check(_states_equal(on, off), "5a: states differ with K1/K2 on and off")
+    check(_states_equal(on_n, off_n),
+          "5b: states differ with K1/K2 on and off")
+    check(_states_equal(on, on_n), "narrow_width changed the state")
+    log = tdev.read_order_log(on)
+    check(len(log) >= n_to_score and len(np.unique(log)) == len(log),
+          "5a: order log short or with duplicates")
+    # the recorded scores are the Tanimoto distances to the target
+    sample = torch.from_numpy(log[:: max(1, len(log) // 4096)]).to(dev)
+    sample = sample.long()
+    want = kernels.tanimoto_matrix_plain(target[None, :], packed[sample],
+                                         tpop.reshape(1), pops[sample])[0]
+    got = on.scores[sample]
+    check(torch.equal(got, want), "5a: recorded scores are not the "
+          f"Tanimoto distances (max err {_max_abs_err(got, want)})")
+    print(f"[5 device-scored] states identical with K1/K2 on and off, full "
+          f"and narrow (K2 narrow launches {narrow}); launches {launches}; "
+          f"{sample.numel()} recorded scores equal the Tanimoto distances",
+          flush=True)
+
+    # 5c: a score-table scorer against phase 4's host-scored order
+    table = torch.from_numpy(np.asarray(ctx["true_scores"], np.float64)
+                             [ctx["keys"]].astype(np.float32)).to(dev)
+    dummy = torch.zeros((dg.n_nodes, 1), dtype=torch.uint8, device=dev)
+    device_run = tdev.make_device_run(dg, dummy, table, lambda _r, t: t,
+                                      batch=8)
+    st = tdev.prime(tdev.init_state(dg), dg, seeds, table[:n_top])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = device_run(st, N_TO_SCORE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    host_ids = [m[0] for m in ctx["mols"]]
+    got_ids = tdev.read_order_log(st).tolist()
+    check(got_ids == host_ids, f"5c: device-scored order ({len(got_ids)}) "
+          f"differs from the host-scored order ({len(host_ids)})")
+    check(np.array_equal(tdev.gather_scores(st, got_ids),
+                         np.asarray([m[1] for m in ctx["mols"]],
+                                    np.float32)),
+          "5c: device-scored scores differ from the host-scored ones")
+    print(f"[5c device-scored] make_device_run, table scorer, batch 8: "
+          f"{len(got_ids):,} scored in {int(st.n_steps)} steps, {dt:.2f} s "
+          f"({len(got_ids) / dt:,.0f} scored/s); order and scores identical "
+          f"to phase 4's host-scored traversal", flush=True)
     return launches
 
 
@@ -283,13 +488,14 @@ def main() -> int:
         smi = phase_device()
         timings = phase_kernels(dev)
         phase_build_parity(dev)
-        launches = phase_main_path(dev, N, N_TO_SCORE)
+        launches, context = phase_main_path(dev, N, N_TO_SCORE)
+        launches.update(phase_device_scored(dev, context))
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     print(smi)
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=SOURCE,
+        dict(name=name, route="cuda", source=k["source"],
              replaces=k["replaces"], launches=launches[name],
              **timings[name])
         for name, k in KERNELS.items()]}))

@@ -2,10 +2,12 @@
 
 ``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a plain
 C interface, keyed by a hash of the sources and the flags, and loaded with
-``ctypes``. The build lands in ``.rad_tpu_torch_build/`` beside the
-package (override with ``RAD_TPU_TORCH_BUILD_DIR``). No fast-math flag is
-passed: the kernels' f32 divide must round to nearest, because bucket keys
-are the bits of the similarity.
+``ctypes``. Each source compiles in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects. The build lands in
+``.rad_tpu_torch_build/`` beside the package (override with
+``RAD_TPU_TORCH_BUILD_DIR``). No fast-math flag is passed: the kernels'
+f32 divide must round to nearest, because bucket keys are the bits of the
+similarity.
 
 A missing ``nvcc`` or a failed build raises; nothing degrades to another
 implementation.
@@ -25,8 +27,9 @@ from pathlib import Path
 __all__ = ["load_library", "build_info", "check", "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -60,8 +63,46 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rad_tanimoto_bucketmin.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci,
                                            vp, vp]
     lib.rad_tanimoto_bucketmin.restype = ci
+    lib.rad_candidate_filter.argtypes = [vp, ci, vp, ci, vp, vp, vp]
+    lib.rad_candidate_filter.restype = ci
+    lib.rad_integrate_candidates.argtypes = [vp, vp, ci, vp, vp, ci, vp, vp,
+                                             ci, vp, ci, vp, vp, vp, vp, vp,
+                                             vp]
+    lib.rad_integrate_candidates.restype = ci
     lib.rad_cuda_error_string.argtypes = [ci]
     lib.rad_cuda_error_string.restype = ctypes.c_char_p
+
+
+def _compile_and_link(sources, so_path: Path, log_path: Path) -> None:
+    """One ``nvcc -c`` per source, all running at once, then one link."""
+    nvcc = _nvcc()
+    tag = f"{so_path.stem}.{os.getpid()}"
+    objs = [so_path.parent / f".{tag}.{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(sources, objs)]
+    log, failed = [], []
+    for src, proc in zip(sources, procs):
+        out, err = proc.communicate()
+        log.append(f"{nvcc} {' '.join(NVCC_FLAGS)} -c {src.name}\n{out}{err}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (exit {proc.returncode}):\n{err}")
+    if not failed:
+        tmp = so_path.parent / f".{tag}.so.tmp"
+        proc = subprocess.run([nvcc, *_ARCH, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        log.append(f"{nvcc} -shared (link)\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append(f"link (exit {proc.returncode}):\n{proc.stderr}")
+        else:
+            os.replace(tmp, so_path)  # atomic: concurrent builders agree
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log_path.write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
 
 
 def load_library() -> ctypes.CDLL:
@@ -83,17 +124,7 @@ def load_library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         built = False
         if not so_path.exists():
-            cmd = [_nvcc(), *NVCC_FLAGS]
-            tmp = out_dir / f".{so_path.name}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [*cmd, "-o", str(tmp), *map(str, sources)],
-                capture_output=True, text=True)
-            log_path.write_text(" ".join(cmd) + "\n" + proc.stdout
-                                + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, so_path)  # atomic: concurrent builders agree
+            _compile_and_link(sources, so_path, log_path)
             built = True
         lib = ctypes.CDLL(str(so_path))
         _declare(lib)

@@ -11,13 +11,19 @@ M = 16, seed 0) and reports, every figure from this run:
    synchronized between the parts), then ``torch.profiler`` over the real
    ``traverse()`` loop: the device's busy share of wall time, and kernel
    launches and CUDA runtime calls per step;
-3. one layer-0 candidate q-block (4096 queries against every column block:
+3. the device-scored step (``fused_run``, batch 64, Tanimoto to one
+   library row) with the K1/K2 kernels on and off: ms per step by host
+   timers over ``DS_STEPS_TIMED`` steps (turns on, off, off, on), then
+   ``torch.profiler`` over ``DS_STEPS_PROFILED`` steps of each: device
+   busy share, kernel launches, stream synchronisations and memcpys per
+   step;
+4. one layer-0 candidate q-block (4096 queries against every column block:
    bucket kernel, decode, merge sort) and one selection chunk (2048 rows):
    wall ms, device ms and the kernels that take the device time, from
    ``torch.profiler``.
 
-The host-timed parts (1 and the step split of 2) run before the profiler
-is first started, so its overhead cannot reach them.
+The host-timed parts (1, the step split of 2 and the timers of 3) run
+before the profiler is first started, so its overhead cannot reach them.
 
 The last line is one JSON object holding every figure printed above it.
 """
@@ -37,9 +43,11 @@ from torch.profiler import ProfilerActivity, profile
 
 from rad_tpu_torch.build.exact import (_one_qblock, _round_up,
                                       _select_layer, build_hnsw_exact)
-from rad_tpu_torch.fp.pack import popcount_rows_np
+from rad_tpu_torch.fp.pack import popcount_rows_np, to_torch_packed
+from rad_tpu_torch.fp.tanimoto import tanimoto_rows_to_target
 from rad_tpu_torch.store import InMemorySmilesStore
 from rad_tpu_torch.synthetic import make_library
+from rad_tpu_torch.traverse import device as tdev
 from rad_tpu_torch.traverse.driver import DeviceTraverser
 
 N = 1_000_000
@@ -48,6 +56,10 @@ BATCH = 8
 WARM_SCORED = 2_500
 STEPS_TIMED = 300
 PROFILE_SCORED = 500
+DS_BATCH = 64
+DS_WARM_STEPS = 100
+DS_STEPS_TIMED = 300
+DS_STEPS_PROFILED = 50
 
 
 def _device_summary(prof, top: int = 6):
@@ -173,6 +185,76 @@ def profile_traversal(graph, scores: np.ndarray, dev) -> dict:
                 fresh_per_step=fresh / STEPS_TIMED, profiled=rep)
 
 
+class DeviceScored:
+    """The device-scored loop of ``chip_smoke.py`` phase 5a on ``graph``:
+    each run starts from a state primed on the top layer and warmed by
+    ``DS_WARM_STEPS`` steps."""
+
+    def __init__(self, graph, dev):
+        self.dg = tdev.prepare_device_graph(graph, dev)
+        self.packed = to_torch_packed(np.asarray(graph.packed), dev)
+        self.pops = torch.from_numpy(
+            np.asarray(graph.popcounts).astype(np.int32)).to(dev)
+        n_top = graph.layer_sizes[graph.max_level]
+        self.seeds = torch.arange(n_top, dtype=torch.int32, device=dev)
+        self.target, self.tpop = self.packed[17], self.pops[17]
+        self.seed_scores = tanimoto_rows_to_target(
+            self.packed[:n_top], self.pops[:n_top], self.target, self.tpop)
+
+    def steps(self, state, n: int, fused: bool):
+        return tdev.fused_run(state, self.dg, self.packed, self.pops,
+                              self.target, self.tpop, 10 ** 9, DS_BATCH,
+                              max_steps=n, fused_candidates=fused)
+
+    def warm_state(self):
+        st = tdev.prime(tdev.init_state(self.dg), self.dg, self.seeds,
+                        self.seed_scores)
+        return self.steps(st, DS_WARM_STEPS, False)
+
+    def timed(self) -> dict:
+        """Host-timed ms per step, K1/K2 on and off, in turns."""
+        ms = {True: [], False: []}
+        for fused in (True, False, False, True):
+            st = self.warm_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.steps(st, DS_STEPS_TIMED, fused)
+            torch.cuda.synchronize()
+            ms[fused].append((time.perf_counter() - t0) * 1e3
+                             / DS_STEPS_TIMED)
+        out = {f"k1k2_{'on' if f else 'off'}_ms_per_step": sum(v) / len(v)
+               for f, v in ms.items()}
+        print(f"[device-scored step, host timers, {DS_STEPS_TIMED} steps of "
+              f"batch {DS_BATCH} after {DS_WARM_STEPS}] ms per step: K1/K2 "
+              f"on {out['k1k2_on_ms_per_step']:.3f}, off "
+              f"{out['k1k2_off_ms_per_step']:.3f}", flush=True)
+        return out
+
+    def profiled(self) -> dict:
+        out = {}
+        for fused in (True, False):
+            st = self.warm_state()
+            _, wall, summary = _profiled(
+                lambda: self.steps(st, DS_STEPS_PROFILED, fused))
+            name = f"k1k2_{'on' if fused else 'off'}"
+            rep = _report(f"device-scored step, K1/K2 "
+                          f"{'on' if fused else 'off'}, under the profiler",
+                          wall, summary, DS_STEPS_PROFILED)
+            per_step = {k: v / DS_STEPS_PROFILED
+                        for k, v in rep["runtime_calls"].items()}
+            rep["launches_per_step"] = per_step.get("cudaLaunchKernel", 0)
+            rep["stream_syncs_per_step"] = per_step.get(
+                "cudaStreamSynchronize", 0)
+            rep["memcpys_per_step"] = per_step.get("cudaMemcpyAsync", 0)
+            print(f"    per step: {rep['device_ms'] / DS_STEPS_PROFILED:.3f}"
+                  f" ms device, {rep['launches_per_step']:.1f} kernel "
+                  f"launches, {rep['stream_syncs_per_step']:.1f} stream "
+                  f"synchronisations, {rep['memcpys_per_step']:.1f} "
+                  f"memcpys", flush=True)
+            out[name] = rep
+        return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profiling: no CUDA device", file=sys.stderr)
@@ -193,9 +275,12 @@ def main() -> int:
     print(f"[build] {N:,} x 1024 bits, M={M}, layers {graph.layer_sizes}: "
           + ", ".join(f"{s} {v:.2f} s" for s, v in result["build_s"].items()),
           flush=True)
+    device_scored = DeviceScored(graph, dev)
+    result["device_scored"] = device_scored.timed()
     # graph keys are the library rows, so scores index by key
     result["traversal"] = profile_traversal(graph, scores, dev)
-    del graph
+    result["device_scored"].update(device_scored.profiled())
+    del graph, device_scored
     result["build_blocks"] = profile_build_blocks(packed, dev)
     print(json.dumps(result))
     return 0

@@ -7,6 +7,13 @@ once; descend the expanded node to level-1 with its own score; lower score
 is better. The step is split at the host scoring boundary into
 :func:`expand` (pop + gather + unique unscored candidate ids) and
 :func:`integrate` (scores in, visited/enqueued updates, frontier push).
+With an on-device scorer the whole step runs without a host scoring
+round trip: :func:`fused_step`, :func:`fused_run` (Tanimoto to a target)
+and :func:`make_device_run` (any torch scorer). ``fused_candidates=True``
+routes the candidate chains through the kernels of
+:mod:`~rad_tpu_torch.traverse.candidate_ops`. States checkpoint to
+``.npz`` files in ``rad_tpu``'s layout (:func:`save_state` /
+:func:`load_state`), so checkpoints cross between the two packages.
 
 Row trick: node ids are level-sorted, so layer ``l`` is the id range
 ``[0, N_l)`` and (node, level) is the single row ``offsets[l] + node`` of
@@ -27,18 +34,25 @@ trailing sentinel slot that absorbs them: its logical contents are
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
 
+from rad_tpu_torch.fp.tanimoto import tanimoto_rows_to_target
 from rad_tpu_torch.graph.storage import HNSWGraph
+from rad_tpu_torch.traverse import candidate_ops
+from rad_tpu_torch.traverse.candidate_ops import _first_occurrence
 
 __all__ = ["DeviceGraph", "TraversalState", "DenseStateOps",
            "flatten_adjacency_host", "prepare_device_graph", "init_state",
            "auto_frontier_capacity", "expand", "integrate", "prime",
            "read_order_log", "gather_scores", "frontier_size",
-           "frontier_empty", "frontier_live_scan", "AUTO_HEAD_CAPACITY",
+           "frontier_empty", "frontier_live", "frontier_live_scan",
+           "fused_step", "fused_run", "make_device_run", "save_state",
+           "save_state_atomic", "load_state", "state_to_reference_arrays",
+           "read_order_log_since", "AUTO_HEAD_CAPACITY",
            "AUTO_HEAD_THRESHOLD"]
 
 INF = float("inf")
@@ -236,20 +250,6 @@ def _level_of_row(dg: DeviceGraph, row: torch.Tensor) -> torch.Tensor:
     return torch.clamp(lev, 0, dg.max_level).to(torch.int32)
 
 
-def _first_occurrence(values: torch.Tensor, sentinel: int) -> torch.Tensor:
-    """Mask of first occurrences of each value (sentinel excluded), in the
-    original order: stable argsort + inverse scatter. O(K log K), no
-    value-range scratch."""
-    perm = torch.sort(values, stable=True).indices
-    sorted_vals = values[perm]
-    prev = torch.cat([torch.full((1,), -1, dtype=values.dtype,
-                                 device=values.device), sorted_vals[:-1]])
-    first_sorted = (sorted_vals != prev) & (sorted_vals != sentinel)
-    first = torch.zeros_like(first_sorted)
-    first[perm] = first_sorted
-    return first
-
-
 def _first_occurrence_scatter(values: torch.Tensor,
                               sentinel: int) -> torch.Tensor:
     """Same mask via scatter-min of batch positions over a
@@ -323,8 +323,12 @@ def _refill_two_level(state: TraversalState) -> None:
 
 
 def expand(state: TraversalState, dg: DeviceGraph, batch: int,
-           ops: DenseStateOps = DENSE_OPS):
+           ops: DenseStateOps = DENSE_OPS, fused_candidates: bool = False):
     """Pop the ``batch`` best frontier entries and gather their neighbors.
+
+    ``fused_candidates=True`` computes ``to_score`` with the K1 kernel
+    (:func:`~rad_tpu_torch.traverse.candidate_ops.candidate_filter`; its
+    plain twin for a CPU state) instead of the chain below — same result.
 
     Returns ``(state, out)`` with ``out`` a dict of device tensors:
       exp_node/exp_level/exp_score/exp_valid: [B] — the popped expansions;
@@ -371,17 +375,22 @@ def expand(state: TraversalState, dg: DeviceGraph, batch: int,
 
     n = dg.n_nodes
     cand_flat = cand.reshape(-1)
-    cand_ok = cand_flat >= 0
-    safe_cand = torch.where(cand_ok, cand_flat, 0)
-    unscored = cand_ok & ~ops.gather(state.scored, safe_cand)
-    ids = torch.where(unscored, cand_flat, n)
-    # unique unscored ids compacted to the front, preserving adjacency
-    # order (the scoring order of the reference's work items)
-    mask = unscored & ops.first_occurrence(ids, n)
-    k = ids.shape[0]
-    pos = torch.cumsum(mask, 0) - 1
-    to_score = torch.full((k + 1,), -1, dtype=torch.int32, device=dev)
-    to_score[torch.where(mask, pos, k)] = cand_flat
+    k = cand_flat.shape[0]
+    if fused_candidates:
+        to_score = candidate_ops.candidate_filter(cand_flat,
+                                                  state.scored[:n])
+    else:
+        cand_ok = cand_flat >= 0
+        safe_cand = torch.where(cand_ok, cand_flat, 0)
+        unscored = cand_ok & ~ops.gather(state.scored, safe_cand)
+        ids = torch.where(unscored, cand_flat, n)
+        # unique unscored ids compacted to the front, preserving adjacency
+        # order (the scoring order of the reference's work items)
+        mask = unscored & ops.first_occurrence(ids, n)
+        pos = torch.cumsum(mask, 0) - 1
+        to_score = torch.full((k + 1,), -1, dtype=torch.int32, device=dev)
+        to_score[torch.where(mask, pos, k)] = cand_flat
+        to_score = to_score[:k]
     state.f_live = state.f_live - valid.sum()
     state.n_steps = state.n_steps + 1
     return state, {
@@ -390,7 +399,7 @@ def expand(state: TraversalState, dg: DeviceGraph, batch: int,
         "exp_score": pop_score,
         "exp_valid": valid,
         "cand": cand,
-        "to_score": to_score[:k],
+        "to_score": to_score,
     }
 
 
@@ -399,12 +408,21 @@ def integrate(state: TraversalState, dg: DeviceGraph,
               exp_score: torch.Tensor, exp_valid: torch.Tensor,
               cand: torch.Tensor, to_score: torch.Tensor,
               new_scores: torch.Tensor,
-              ops: DenseStateOps = DENSE_OPS) -> TraversalState:
+              ops: DenseStateOps = DENSE_OPS,
+              fused_candidates: bool = False) -> TraversalState:
     """Integrate host scores and complete the traversal step: scored-set
     insert-if-absent + order-log append; per-(node, level) enqueued
     check-and-set; frontier push of new candidates; level descent of the
     expanded nodes; buffer append, or a merge when the buffer would
-    overflow (worst entries spill to cold, or drop, counted)."""
+    overflow (worst entries spill to cold, or drop, counted).
+
+    ``to_score``/``new_scores`` may be narrower than the ``[B*M0]``
+    candidates (a prefix, as ``narrow_width`` passes them).
+    ``fused_candidates=True`` runs the scored insert and the enqueue
+    check-and-set as the K2 kernel
+    (:func:`~rad_tpu_torch.traverse.candidate_ops.integrate_candidates`;
+    its plain twin for a CPU state) — the same masks whenever
+    ``to_score`` holds no duplicate id, which the engine guarantees."""
     n = dg.n_nodes
     cap = state.order_log.shape[0] - 1
     dev = state.f_score.device
@@ -415,21 +433,30 @@ def integrate(state: TraversalState, dg: DeviceGraph,
     lev_flat = exp_level.repeat_interleave(m0)
     row_flat = dg.offsets[lev_flat.long()] + safe_cand
 
-    # -- scored set: insert-if-absent (a pipelined driver can deliver an
-    # id in two in-flight batches; the first integration wins)
-    ts_ok = to_score >= 0
-    fresh = ts_ok & ~ops.gather(state.scored, torch.where(ts_ok, to_score, 0))
-    ts_idx = torch.where(fresh, to_score, n)
-    ops.scatter_(state.scores, ts_idx, new_scores)
-    ops.scatter_(state.scored, ts_idx, True)
+    if fused_candidates:
+        *_, fresh, push, cand_score = candidate_ops.integrate_candidates(
+            to_score, new_scores, cand_flat, row_flat, state.scored[:n],
+            state.scores[:n], state.enqueued[:dg.n_rows])
+    else:
+        # -- scored set: insert-if-absent (a pipelined driver can deliver
+        # an id in two in-flight batches; the first integration wins)
+        ts_ok = to_score >= 0
+        fresh = ts_ok & ~ops.gather(state.scored,
+                                    torch.where(ts_ok, to_score, 0))
+        ts_idx = torch.where(fresh, to_score, n)
+        ops.scatter_(state.scores, ts_idx, new_scores)
+        ops.scatter_(state.scored, ts_idx, True)
 
-    # -- candidate enqueue: check-and-set at the expansion level
-    first = ops.first_occurrence(torch.where(cand_ok, row_flat, dg.n_rows),
-                                 dg.n_rows)
-    not_enq = ~ops.gather(state.enqueued, torch.where(cand_ok, row_flat, 0))
-    push = cand_ok & not_enq & first
-    ops.scatter_(state.enqueued, torch.where(push, row_flat, dg.n_rows), True)
-    cand_score = ops.gather(state.scores, safe_cand).masked_fill(~push, INF)
+        # -- candidate enqueue: check-and-set at the expansion level
+        first = ops.first_occurrence(
+            torch.where(cand_ok, row_flat, dg.n_rows), dg.n_rows)
+        not_enq = ~ops.gather(state.enqueued,
+                              torch.where(cand_ok, row_flat, 0))
+        push = cand_ok & not_enq & first
+        ops.scatter_(state.enqueued,
+                     torch.where(push, row_flat, dg.n_rows), True)
+        cand_score = ops.gather(state.scores,
+                                safe_cand).masked_fill(~push, INF)
 
     pos_in_batch = torch.cumsum(fresh, 0) - 1
     log_pos = torch.where(fresh, (state.n_scored + pos_in_batch) % cap, cap)
@@ -635,3 +662,198 @@ def frontier_size(state: TraversalState) -> int:
 
 def frontier_empty(state: TraversalState) -> bool:
     return frontier_size(state) == 0
+
+
+def frontier_live(state: TraversalState) -> torch.Tensor:
+    """Live frontier entries (head past the cursor + buffer + cold): the
+    incrementally maintained 0-d tensor, O(1)."""
+    return state.f_live
+
+
+# --------------------------------------------------------------------------
+# Device-scored traversal: pop -> score on the device -> integrate, with no
+# host scoring round trip. JAX's ``lax.while_loop`` is a host loop here that
+# reads the loop condition before every step (one synchronisation), so it
+# stops on exactly the step where the reference's loop stops.
+
+
+def _target_scorer(packed, pops, target_packed, target_pop):
+    """``to_score`` → Tanimoto distance to the target (+inf on padding)."""
+    def score(ts: torch.Tensor) -> torch.Tensor:
+        ok = ts >= 0
+        safe = torch.where(ok, ts, 0).long()
+        return tanimoto_rows_to_target(packed[safe], pops[safe],
+                                       target_packed, target_pop, valid=ok)
+    return score
+
+
+def _device_loop(state: TraversalState, dg: DeviceGraph, score,
+                 n_to_score, batch: int, max_steps: int,
+                 narrow_width: int | None,
+                 fused_candidates: bool) -> TraversalState:
+    n_to_score = int(n_to_score)
+    steps = 0
+    while steps < int(max_steps):
+        n_scored, live = torch.stack(
+            [state.n_scored.long(), frontier_live(state).long()]).tolist()
+        if n_scored >= n_to_score or live <= 0:
+            break
+        state, out = expand(state, dg, batch,
+                            fused_candidates=fused_candidates)
+        ts = out["to_score"]
+        # narrow_width: a step that discovers few ids scores and
+        # integrates only the front of to_score (the rest is -1 padding)
+        if (narrow_width is not None and narrow_width < ts.shape[0]
+                and int((ts >= 0).sum()) <= narrow_width):
+            ts = ts[:narrow_width]
+        state = integrate(state, dg, out["exp_node"], out["exp_level"],
+                          out["exp_score"], out["exp_valid"], out["cand"],
+                          ts, score(ts), fused_candidates=fused_candidates)
+        steps += 1
+    return state
+
+
+def fused_step(state: TraversalState, dg: DeviceGraph, packed: torch.Tensor,
+               pops: torch.Tensor, target_packed: torch.Tensor, target_pop,
+               batch: int) -> TraversalState:
+    """One device-resident step with the Tanimoto-to-target scorer:
+    expand, score ``to_score`` against ``target_packed`` on the device,
+    integrate. ``packed`` is the ``[N, W]`` int32 bit-view library by node
+    id, ``pops`` its ``[N]`` popcounts."""
+    state, out = expand(state, dg, batch)
+    ts = out["to_score"]
+    scores = _target_scorer(packed, pops, target_packed, target_pop)(ts)
+    return integrate(state, dg, out["exp_node"], out["exp_level"],
+                     out["exp_score"], out["exp_valid"], out["cand"], ts,
+                     scores)
+
+
+def fused_run(state: TraversalState, dg: DeviceGraph, packed: torch.Tensor,
+              pops: torch.Tensor, target_packed: torch.Tensor, target_pop,
+              n_to_score, batch: int, max_steps: int = 1 << 20,
+              narrow_width: int | None = None,
+              fused_candidates: bool = False) -> TraversalState:
+    """Repeat :func:`fused_step` while ``n_scored < n_to_score``, fewer
+    than ``max_steps`` steps ran and the frontier is live.
+
+    ``narrow_width`` (< batch*M0): when a step discovers at most this many
+    ids, score and integrate run on ``to_score[:narrow_width]`` — the same
+    scored set, order and drops, fewer padded slots. ``fused_candidates``
+    routes the candidate chains through the K1/K2 kernels."""
+    return _device_loop(
+        state, dg, _target_scorer(packed, pops, target_packed, target_pop),
+        n_to_score, batch, max_steps, narrow_width, fused_candidates)
+
+
+def make_device_run(dg: DeviceGraph, packed: torch.Tensor,
+                    pops: torch.Tensor, scorer, batch: int,
+                    max_steps: int = 1 << 20,
+                    narrow_width: int | None = None):
+    """A traversal loop around any torch scorer.
+
+    ``scorer(packed_rows, pop_rows) -> [K]`` receives ``packed[ids]`` and
+    ``pops[ids]`` for the step's ``to_score`` ids (padding gathers row 0),
+    whatever their dtype: an MLP over fingerprint bits, a similarity, or a
+    score table passed as ``pops``. Its output is cast to f32 and padding
+    slots become +inf. ``narrow_width`` as in :func:`fused_run`.
+
+    Returns ``run(state, n_to_score, step_budget=None) -> state``; the
+    step budget defaults to ``max_steps``."""
+    def score(ts: torch.Tensor) -> torch.Tensor:
+        ok = ts >= 0
+        safe = torch.where(ok, ts, 0).long()
+        raw = scorer(packed[safe], pops[safe])
+        return torch.where(ok, raw.to(torch.float32), INF)
+
+    def run(state: TraversalState, n_to_score,
+            step_budget=None) -> TraversalState:
+        budget = max_steps if step_budget is None else step_budget
+        return _device_loop(state, dg, score, n_to_score, batch, budget,
+                            narrow_width, False)
+
+    return run
+
+
+# --------------------------------------------------------------------------
+# Checkpoints: one .npz in rad_tpu's layout (no sentinel slots), so a file
+# written by either package loads in the other.
+
+# tables with a trailing sentinel slot, and the value it is created with
+_SENTINEL_FILL = {"f_buf_score": INF, "f_buf_row": 0, "cold_score": INF,
+                  "cold_row": 0, "enqueued": False, "scored": False,
+                  "scores": INF, "order_log": -1}
+
+
+def state_to_reference_arrays(state: TraversalState) -> dict:
+    """Host numpy arrays of ``state`` in ``rad_tpu``'s layout: sentinel
+    slots dropped, integers as int32."""
+    out = {}
+    for f in fields(TraversalState):
+        t = getattr(state, f.name).detach().cpu()
+        if f.name in _SENTINEL_FILL:
+            t = t[:-1]
+        a = t.numpy()
+        if a.dtype == np.int64:
+            a = a.astype(np.int32)
+        out[f.name] = a
+    return out
+
+
+def save_state(state: TraversalState, path: str) -> None:
+    """Checkpoint a traversal to one ``.npz`` (``np.savez`` appends the
+    suffix to other paths; :func:`save_state_atomic` does not)."""
+    np.savez(path, **state_to_reference_arrays(state))
+
+
+def save_state_atomic(state: TraversalState, path: str) -> None:
+    """Write-then-rename :func:`save_state`: a crash mid-save never
+    corrupts the last good checkpoint, and the file lands at exactly
+    ``path`` whatever its suffix."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    save_state(state, tmp)
+    if not os.path.exists(tmp) and os.path.exists(tmp + ".npz"):
+        tmp = tmp + ".npz"
+    os.replace(tmp, path)
+
+
+def load_state(path: str, device="cpu") -> TraversalState:
+    """Restore a checkpoint written by :func:`save_state` or by
+    ``rad_tpu``'s ``save_state`` (including its pre-``f_live`` and
+    single-level forms) onto ``device``, adding the sentinel slots."""
+    if not os.path.exists(path) and os.path.exists(path + ".npz"):
+        path = path + ".npz"   # a bare save_state() output for this path
+    names = [f.name for f in fields(TraversalState)]
+    with np.load(path) as data:
+        arrays = {k: np.asarray(data[k]) for k in names if k in data}
+    if "f_live" not in arrays:  # oldest form: recount head + buffer
+        c = arrays["f_score"].shape[0]
+        live = np.arange(c) >= arrays["f_cursor"]
+        arrays["f_live"] = np.asarray(
+            np.sum(live & np.isfinite(arrays["f_score"]))
+            + np.sum(np.isfinite(arrays["f_buf_score"])), np.int32)
+    if "cold_score" not in arrays:  # single-level form
+        arrays["cold_score"] = np.zeros((0,), np.float32)
+        arrays["cold_row"] = np.zeros((0,), np.int32)
+        arrays["cold_n"] = np.asarray(0, np.int32)
+        arrays["watermark"] = np.asarray(INF, np.float32)
+    tensors = {}
+    for k in names:
+        a = arrays[k]
+        if k in _SENTINEL_FILL:
+            a = np.concatenate([a, np.asarray([_SENTINEL_FILL[k]], a.dtype)])
+        tensors[k] = torch.from_numpy(a.copy()).to(device)
+    return TraversalState(**tensors)
+
+
+def read_order_log_since(state: TraversalState, start: int) -> np.ndarray:
+    """Scored node ids in positions ``[start, n_scored)`` — the
+    incremental drain for runs that outgrow the ring. Raises if more than
+    the ring's capacity accumulated since ``start``."""
+    cap = state.order_log.shape[0] - 1
+    n = int(state.n_scored)
+    if n - start > cap:
+        raise RuntimeError(
+            f"order log overran: {n - start} new entries > ring capacity "
+            f"{cap}; drain more frequently or raise log_capacity")
+    idx = torch.arange(start, n, device=state.order_log.device) % cap
+    return state.order_log[idx].cpu().numpy()

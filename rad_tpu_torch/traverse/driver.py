@@ -6,7 +6,9 @@ boundary: candidate node ids → user keys → SMILES (store lookup) → the
 user's ``scoring_fn`` → scores back to the device. A thread pool runs the
 per-molecule scoring calls of a batch in parallel, and with
 ``pipeline_depth > 1`` the device expands the next batch while the host
-scores the current one.
+scores the current one. ``traverse(checkpoint_path=...)`` persists the
+state periodically; :meth:`DeviceTraverser.load_checkpoint` resumes it
+(files in ``rad_tpu``'s layout, so either package resumes the other's).
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ class DeviceTraverser:
         if order_log_spill or packed_adjacency:
             raise NotImplementedError(
                 "order_log_spill / packed_adjacency are not ported yet "
-                "(ROADMAP Queue 1 items 5 and 10)")
+                "(ROADMAP Queue 1 items 4 and 10)")
         self.graph = graph
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -95,13 +97,15 @@ class DeviceTraverser:
         timeout: Optional[float] = None,
         pipeline_depth: int = 1,
         checkpoint_path: Optional[str] = None,
+        checkpoint_interval: int = 100,
     ) -> dict:
         """Run the best-first sweep until ``n_to_score`` molecules are
-        scored, ``timeout`` seconds pass, or the frontier empties."""
-        if checkpoint_path is not None:
-            raise NotImplementedError(
-                "traversal checkpoints are not ported yet (ROADMAP Queue 1 "
-                "item 5)")
+        scored, ``timeout`` seconds pass, or the frontier empties.
+
+        ``checkpoint_path``: the state is written there atomically every
+        ``checkpoint_interval`` integrated batches and at the end, so a
+        killed campaign resumes with :meth:`load_checkpoint` and another
+        ``traverse()``, losing at most one interval of scoring work."""
         if not self._primed:
             raise RuntimeError("prime() must be called before traverse()")
         if n_to_score is not None:
@@ -118,12 +122,24 @@ class DeviceTraverser:
                     self.batch_size * self.dg.m0,
                     max(1, n_to_score // (self.dg.m0 * 32)))
 
+        n_since_ckpt = [0]
+
+        def after_integrate(state):
+            n_since_ckpt[0] += 1
+            if n_since_ckpt[0] >= checkpoint_interval:
+                n_since_ckpt[0] = 0
+                dev.save_state_atomic(state, checkpoint_path)
+
         self.state, _ = pipelined_traverse(
             self.state, self._expand, self._integrate,
             self._bridge.score_batch,
             n_scored_of=lambda st: int(st.n_scored),
             n_to_score=n_to_score, timeout=timeout,
-            pipeline_depth=pipeline_depth, stats=self.stats)
+            pipeline_depth=pipeline_depth, stats=self.stats,
+            after_integrate=(after_integrate if checkpoint_path is not None
+                             else None))
+        if checkpoint_path is not None:
+            dev.save_state_atomic(self.state, checkpoint_path)
         return dict(self.stats, n_scored=self.n_scored)
 
     def _expand(self, state):
@@ -137,6 +153,22 @@ class DeviceTraverser:
 
     def shutdown(self) -> None:
         self._bridge.shutdown()
+
+    # ----------------------------------------------------------- checkpoint
+    def save_checkpoint(self, path: str) -> None:
+        """Persist the traversal state at exactly ``path``; a new
+        DeviceTraverser over the same graph resumes with
+        :meth:`load_checkpoint`."""
+        dev.save_state_atomic(self.state, path)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore a checkpoint of this graph (this package's or
+        ``rad_tpu``'s) onto this traverser's device."""
+        state = dev.load_state(path, self.device)
+        if state.scored.shape[0] - 1 != self.dg.n_nodes:
+            raise ValueError("checkpoint is for a different graph size")
+        self.state = state
+        self._primed = bool(int(state.n_scored) > 0)
 
     # -------------------------------------------------------------- results
     @property

@@ -176,7 +176,27 @@ def test_unported_options_raise(graphs):
     _, g = graphs
     with pytest.raises(NotImplementedError):
         DeviceTraverser(g, _score, packed_adjacency=True)
-    t = DeviceTraverser(g, _score, n_score_threads=1)
-    t.prime()
     with pytest.raises(NotImplementedError):
-        t.traverse(n_to_score=10, checkpoint_path="x.npz")
+        DeviceTraverser(g, _score, order_log_spill=True)
+
+
+def test_periodic_checkpoint_restores_n_scored(graphs, tmp_path):
+    """traverse(checkpoint_path=...) leaves the file behind; a fresh
+    traverser's load_checkpoint restores n_scored and the scoring order,
+    and the resumed run ends where an uninterrupted one does."""
+    _, g = graphs
+    ckpt = tmp_path / "auto.npz"
+    t = DeviceTraverser(g, _score, batch_size=8, n_score_threads=1)
+    t.prime()
+    t.traverse(n_to_score=200, checkpoint_path=str(ckpt),
+               checkpoint_interval=3)
+    assert ckpt.exists()
+    t2 = DeviceTraverser(g, _score, batch_size=8, n_score_threads=1)
+    t2.load_checkpoint(str(ckpt))
+    assert t2.n_scored == t.n_scored >= 200
+    assert t2.get_molecules() == t.get_molecules()
+    for x in (t, t2):
+        x.traverse(n_to_score=600)
+    assert t2.get_molecules() == t.get_molecules()
+    for x in (t, t2):
+        x.shutdown()
