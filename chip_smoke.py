@@ -9,7 +9,9 @@ Phases, one status line each (plus detail lines):
    the kernels built by nvcc for sm_90a from ``rad_tpu_torch/csrc``;
 2. each CUDA kernel against its plain-torch twin on the card, at the
    shapes its path gives it (1024-bit fingerprints; 2,048 candidates over
-   the 1M graph's 1,000,000 ids and 1,066,610 rows): array-equal, and both
+   the 1M graph's 1,000,000 ids and 1,066,610 rows): array-equal (the
+   bucket kernel's approximate-reciprocal epilogue: decoded distances
+   within 2^-14 and chosen entries' true distances within 1e-6), and both
    timed with CUDA events;
 3. a 16,384-row library built with ``build_hnsw_exact`` on the card and on
    the CPU (twins): edge-identical on every layer; then the same traversal
@@ -26,7 +28,20 @@ Phases, one status line each (plus detail lines):
    K1/K2 and once through the plain chain: identical states; (b) the same
    pair with ``narrow_width=1024``, where K2 sees fewer to-score ids than
    candidates; (c) ``make_device_run`` with a score-table scorer at batch
-   8: the same scoring order as phase 4's host-scored traversal.
+   8: the same scoring order as phase 4's host-scored traversal;
+6. the cluster-probed build at 10,000,000 molecules x 1024 bits, M = 16
+   (the library and operating point of
+   ``benchmarks/bench_probe_sweep.py``'s qblock:16 point): (a) the library;
+   (b) ``HNSWIndex.build(probes=16, probe_csize=8192, probe_sample=16,
+   probe_granularity="qblock", probe_min_n=0)`` with both Tanimoto kernels
+   launched and layer 0 probed; (c) edge recall@10 and ``index.search``
+   recall@10 at ef 32 and 128 over 500 member queries against brute force,
+   each within its bound of the reference's recorded value; (d) ``prime``
+   + ``make_device_run`` with the score table at batch 512, K1/K2 on, to
+   1 % scored: at least half the true top-1000 found; (e) phase 4's 1M
+   build again with ``bucket_approx=True``: at least 99 % of layer-0 slots
+   equal; (f) a 32,768-row probed build on the card and on the CPU, both
+   granularities: edge-identical.
 
 The last three lines are the card's ``nvidia-smi`` line, a JSON object
 describing each kernel, and ``{"ok": true, "device": {...}}``. Any failed
@@ -58,9 +73,14 @@ from rad_tpu_torch.traverse import candidate_ops
 from rad_tpu_torch.traverse import device as tdev
 from rad_tpu_torch.traverse.driver import DeviceTraverser
 
+# name -> wrapper, the wrapper attribute that counts its launches, source
 KERNELS = {
     "tanimoto_bucketmin": dict(
         wrapper=kernels.tanimoto_bucketmin,
+        source="rad_tpu_torch/csrc/tanimoto.cu",
+        replaces="rad_tpu/fp/kernels.py:209"),
+    "tanimoto_bucketmin_approx": dict(
+        wrapper=kernels.tanimoto_bucketmin, counter="approx_launches",
         source="rad_tpu_torch/csrc/tanimoto.cu",
         replaces="rad_tpu/fp/kernels.py:209"),
     "tanimoto_matrix": dict(
@@ -81,6 +101,16 @@ N_TO_SCORE = N // 100    # main-path budget: 1% scored
 R = 1_066_610            # the 1M graph's (node, level) rows
 K = 64 * 32              # candidates per device-scored step: batch x M0
 TARGET = 17              # phase 5's target: one library row
+N10 = 10_000_000         # phase 6's library
+# phase 6c: the reference's recorded qblock:16 graph properties on this
+# library (BENCHMARKS.md:450, 457, 466) and the bound each is held to.
+# They are one partition's. A one-ulp change to the bisection scores gives
+# another partition (tests/test_torch_probe.py), and over four partitions
+# of this library edge recall spread with SD 0.010 (PERF.md, section 6),
+# so its bound is 3 SD; the reference's own 0.01 is reported beside it
+REF_RECALL = {"edge": (0.558, 0.03), "ef32": (0.7064, 0.03),
+              "ef128": (0.9000, 0.03)}
+EDGE_REF_TOL = 0.01
 
 
 class CheckFailed(RuntimeError):
@@ -159,6 +189,31 @@ def phase_kernels(dev) -> dict:
                                          plain_ms=plain_ms)
     print(f"[2 kernels] tanimoto_bucketmin 4096x8192 bucket 64: array-equal "
           f"to plain; {ms:.3f} ms vs plain {plain_ms:.3f} ms", flush=True)
+
+    keys = kernels.tanimoto_bucketmin(q, db, 64, qp, dp, approx=True)
+    torch.cuda.synchronize()
+    plain = kernels.tanimoto_bucketmin_plain(q, db, 64, qp, dp, approx=True)
+    (d, gid), (pd, pgid) = (kernels.decode_bucket_keys(k, 64)
+                            for k in (keys, plain))
+    err = float((d - pd).abs().max())
+    true = kernels.tanimoto_matrix_plain(q, db, qp, dp)
+    chosen = float((true.gather(1, gid.long())
+                    - true.gather(1, pgid.long())).abs().max())
+    check(err <= 2.0 ** -14 and chosen <= 1e-6,
+          f"approx tanimoto_bucketmin vs plain: decoded distances differ by "
+          f"{err} (bound 2^-14), chosen entries' true distances by {chosen} "
+          f"(bound 1e-6)")
+    ms, plain_ms = _turns(
+        lambda: kernels.tanimoto_bucketmin(q, db, 64, qp, dp, approx=True),
+        lambda: kernels.tanimoto_bucketmin_plain(q, db, 64, qp, dp,
+                                                 approx=True))
+    results["tanimoto_bucketmin_approx"] = dict(max_abs_err=err, ms=ms,
+                                                plain_ms=plain_ms)
+    print(f"[2 kernels] tanimoto_bucketmin approx=True 4096x8192 bucket 64: "
+          f"decoded distances within {err:.3g} of plain (bound 2^-14), "
+          f"chosen entries' true distances within {chosen:.3g} (bound "
+          f"1e-6), {int((gid != pgid).sum())} of {gid.numel()} winners "
+          f"differ; {ms:.3f} ms vs plain {plain_ms:.3f} ms", flush=True)
 
     q = to_torch_packed(random_fingerprints(8192, 1024, 0.12, seed=3), dev)
     db = to_torch_packed(random_fingerprints(8192, 1024, 0.12, seed=4), dev)
@@ -338,8 +393,7 @@ def phase_main_path(dev, n: int, n_to_score: int) -> dict:
         mols = traverser.get_molecules()
         dev_stats = traverser.get_traversal_stats()["device"]
         traverser.shutdown()
-        launches = {name: KERNELS[name]["wrapper"].launches
-                    for name in ("tanimoto_bucketmin", "tanimoto_matrix")}
+        launches = _counts("tanimoto_bucketmin", "tanimoto_matrix")
         graph = loaded.graph
         context = dict(
             dg=tdev.prepare_device_graph(graph, dev),
@@ -347,7 +401,8 @@ def phase_main_path(dev, n: int, n_to_score: int) -> dict:
             pops=torch.from_numpy(np.asarray(graph.popcounts)
                                   .astype(np.int32)).to(dev),
             keys=np.asarray(graph.keys), true_scores=true_scores,
-            n_top=graph.layer_sizes[graph.max_level], mols=mols)
+            n_top=graph.layer_sizes[graph.max_level], mols=mols,
+            library=packed, graph=graph, stage=stage)
 
     for name, count in launches.items():
         check(count > 0, f"{name} never launched on the main path")
@@ -383,8 +438,14 @@ def phase_main_path(dev, n: int, n_to_score: int) -> dict:
 
 def _reset_counts() -> None:
     for k in KERNELS.values():
-        k["wrapper"].launches = 0
+        setattr(k["wrapper"], k.get("counter", "launches"), 0)
     candidate_ops.integrate_candidates.narrow_launches = 0
+
+
+def _counts(*names) -> dict:
+    return {name: getattr(KERNELS[name]["wrapper"],
+                          KERNELS[name].get("counter", "launches"))
+            for name in names}
 
 
 def _states_equal(a, b) -> bool:
@@ -424,8 +485,7 @@ def phase_device_scored(dev, ctx: dict) -> dict:
     narrow_before = candidate_ops.integrate_candidates.narrow_launches
     on_n = run(True, 1024)
     off_n = run(False, 1024)
-    launches = {name: KERNELS[name]["wrapper"].launches
-                for name in ("candidate_filter", "integrate_candidates")}
+    launches = _counts("candidate_filter", "integrate_candidates")
     narrow = candidate_ops.integrate_candidates.narrow_launches \
         - narrow_before
     for name, count in launches.items():
@@ -478,6 +538,171 @@ def phase_device_scored(dev, ctx: dict) -> dict:
     return launches
 
 
+def _recall(found: np.ndarray, truth: np.ndarray) -> float:
+    return float(np.mean([len(set(f.tolist()) & set(t.tolist())) / 10.0
+                          for f, t in zip(found, truth)]))
+
+
+def _graph_recall(index, q, qidx, truth) -> dict:
+    """Edge recall@10 of the member queries' layer-0 rows and the beam
+    search's recall@10 at ef 32 and 128, against ``truth`` (keys)."""
+    g = index.graph
+    keys = np.asarray(g.keys)
+    row_of = np.empty(len(keys), np.int64)
+    row_of[keys] = np.arange(len(keys))
+    adj = np.asarray(g.neighbors[0])[row_of[qidx]]
+    adj_keys = np.where(adj >= 0, keys[np.maximum(adj, 0)], -1)
+    # a member query's own row counts as its 0-th neighbor
+    got = {"edge": _recall(np.concatenate([adj_keys, qidx[:, None]], 1),
+                           truth)}
+    t_search = {}
+    for ef in (32, 128):
+        t0 = time.perf_counter()
+        _, found = index.search(q, k=10, expansion_search=ef)
+        t_search[ef] = time.perf_counter() - t0
+        got[f"ef{ef}"] = _recall(found, truth)
+    print(f"[6c recall] "
+          + "; ".join(f"{name} recall@10 {got[name]:.4f} (reference "
+                      f"{ref:.4f} +- {tol})"
+                      for name, (ref, tol) in REF_RECALL.items())
+          + f"; search {t_search[32]:.2f} s at ef 32, {t_search[128]:.2f} s "
+          f"at ef 128", flush=True)
+    return got
+
+
+def phase_probed_10m(dev) -> dict:
+    t0 = time.perf_counter()
+    packed, true_scores = make_library(N10, seed=0, batch=1 << 20)
+    print(f"[6a library] {N10:,} x 1024-bit (make_library, batch 2^20): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = HNSWIndex(ndim=1024, connectivity=16, device=dev)
+    index.add(np.arange(N10), packed)
+    stage = {}
+    index.build(probes=16, probe_csize=8192, probe_sample=16,
+                probe_granularity="qblock", probe_min_n=0,
+                stage_times=stage)
+    t_build = time.perf_counter() - t0
+    launches = _counts("tanimoto_bucketmin", "tanimoto_matrix")
+    g = index.graph
+    probed = stage["probed_layers"]
+    for name, count in launches.items():
+        check(count > 0, f"{name} never launched in the 10M probed build")
+    _check_graph(g)
+    check(0 in probed, f"layer 0 did not probe (probed layers {probed})")
+    print(f"[6b probed build] {N10:,}, M=16, probes 16 of 8192, qblock, "
+          f"layers {g.layer_sizes}, probed layers {probed}: "
+          f"{t_build:.1f} s (bisection {stage['bisection']:.2f} s, probe "
+          f"tables {stage['probe_tables']:.2f} s, candidates "
+          f"{stage['candidates']:.2f} s, selection {stage['selection']:.2f}"
+          f" s, symmetrization {stage['symmetrization']:.2f} s); launches "
+          f"{launches}", flush=True)
+
+    qidx = np.random.default_rng(17).choice(N10, 500, replace=False)
+    q = packed[qidx]
+    t0 = time.perf_counter()
+    _, truth = index.search(q, k=10, exact=True)
+    t_truth = time.perf_counter() - t0
+    print(f"[6c recall] 500 member queries (rng 17), brute-force truth "
+          f"{t_truth:.1f} s", flush=True)
+    got = _graph_recall(index, q, qidx, truth)
+    edge_ref = REF_RECALL["edge"][0]
+    print(f"[6c recall] edge recall@10 {got['edge']:.4f} is "
+          f"{'' if abs(got['edge'] - edge_ref) <= EDGE_REF_TOL else 'not '}"
+          f"within the reference's own {EDGE_REF_TOL} of {edge_ref}",
+          flush=True)
+    for name, (ref, tol) in REF_RECALL.items():
+        check(abs(got[name] - ref) <= tol, f"10M {name} recall@10 "
+              f"{got[name]:.4f} is not within {tol} of {ref}")
+
+    keys = np.asarray(g.keys)
+    dg = tdev.prepare_device_graph(g, dev)
+    table = torch.from_numpy(true_scores[keys].astype(np.float32)).to(dev)
+    dummy = torch.zeros((N10, 1), dtype=torch.uint8, device=dev)
+    run = tdev.make_device_run(dg, dummy, table, lambda _r, t: t, batch=512,
+                               fused_candidates=True)
+    n_top = g.layer_sizes[g.max_level]
+    st = tdev.prime(tdev.init_state(dg), dg,
+                    torch.arange(n_top, dtype=torch.int32, device=dev),
+                    table[:n_top])
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = run(st, N10 // 100)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rad_launches = _counts("candidate_filter", "integrate_candidates")
+    for name, count in rad_launches.items():
+        check(count > 0, f"{name} never launched in the 10M traversal")
+    log = tdev.read_order_log(st)
+    check(len(log) >= N10 // 100 and len(np.unique(log)) == len(log),
+          "10M traversal: order log short or with duplicates")
+    top = set(np.argsort(true_scores, kind="stable")[:1000].tolist())
+    found = len(top & set(keys[log].tolist()))
+    print(f"[6d RAD] make_device_run, score table, batch 512, K1/K2 on: "
+          f"{len(log):,} scored ({100 * len(log) / N10:.2f} %) in "
+          f"{int(st.n_steps)} steps, {dt:.2f} s; true top-1000 found "
+          f"{found} ({found / 10:.1f} %); launches {rad_launches}",
+          flush=True)
+    check(found >= 500, f"10M traversal found {found} of the true top-1000 "
+          f"at 1 % scored (< 50 %)")
+    del index, g, dg, table, dummy, st
+    return rad_launches
+
+
+def phase_approx_1m(dev, ctx: dict) -> dict:
+    _reset_counts()
+    torch.cuda.synchronize()
+    stage = {}
+    g = build_hnsw_exact(ctx["library"], connectivity=16, seed=0,
+                         device=dev, bucket_approx=True, stage_times=stage)
+    launches = _counts("tanimoto_bucketmin_approx", "tanimoto_bucketmin")
+    check(launches["tanimoto_bucketmin_approx"] > 0,
+          "the approximate bucket epilogue never launched")
+    check(launches["tanimoto_bucketmin"] == 0,
+          "the exact bucket epilogue ran in the bucket_approx build")
+    ref = np.asarray(ctx["graph"].neighbors[0])
+    check(g.layer_sizes == ctx["graph"].layer_sizes, "layer sizes differ")
+    same = float(np.mean(g.neighbors[0] == ref))
+    print(f"[6e approx epilogue] {N:,} build with bucket_approx=True: "
+          f"{100 * same:.3f} % of layer-0 slots equal phase 4's exact-"
+          f"epilogue graph; candidates {stage['candidates']:.2f} s vs "
+          f"exact {ctx['stage']['candidates']:.2f} s (phase 4); launches "
+          f"{launches}", flush=True)
+    check(same >= 0.99, f"bucket_approx build: {100 * same:.3f} % of "
+          f"layer-0 slots equal the exact-epilogue graph (< 99 %)")
+    # the exact epilogue's count stays phase 4's
+    return {"tanimoto_bucketmin_approx": launches["tanimoto_bucketmin_approx"]}
+
+
+def phase_probed_parity(dev) -> None:
+    packed, _ = make_library(32768, seed=3)
+    kw = dict(connectivity=16, seed=0, probes=4, probe_csize=1024,
+              q_block=1024, col_block=1024, sel_block=1024, probe_min_n=0)
+    for gran in ("qblock", "cluster"):
+        t0 = time.perf_counter()
+        stage = {}
+        g_cuda = build_hnsw_exact(packed, device=dev, probe_granularity=gran,
+                                  stage_times=stage, **kw)
+        t1 = time.perf_counter()
+        g_cpu = build_hnsw_exact(packed, device="cpu",
+                                 probe_granularity=gran, **kw)
+        t2 = time.perf_counter()
+        check(0 in stage["probed_layers"],
+              f"32k {gran}: layer 0 did not probe")
+        check(g_cuda.layer_sizes == g_cpu.layer_sizes, "layer sizes differ")
+        for l, (a, b) in enumerate(zip(g_cuda.neighbors, g_cpu.neighbors)):
+            diff = int((a != b).sum())
+            check(diff == 0, f"32k {gran} layer {l}: {diff} slots differ")
+        print(f"[6f probed parity] 32,768 rows, probes 4 of 1024, {gran}, "
+              f"layers {g_cuda.layer_sizes}: CUDA build edge-identical to "
+              f"the CPU build ({t1 - t0:.2f} s vs {t2 - t1:.2f} s)",
+              flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -490,6 +715,9 @@ def main() -> int:
         phase_build_parity(dev)
         launches, context = phase_main_path(dev, N, N_TO_SCORE)
         launches.update(phase_device_scored(dev, context))
+        phase_probed_10m(dev)
+        launches.update(phase_approx_1m(dev, context))
+        phase_probed_parity(dev)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

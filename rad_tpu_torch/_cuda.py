@@ -61,7 +61,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rad_tanimoto_matrix.argtypes = [vp, vp, ci, vp, vp, ci, ci, vp, vp]
     lib.rad_tanimoto_matrix.restype = ci
     lib.rad_tanimoto_bucketmin.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci,
-                                           vp, vp]
+                                           ci, vp, vp]
     lib.rad_tanimoto_bucketmin.restype = ci
     lib.rad_candidate_filter.argtypes = [vp, ci, vp, ci, vp, vp, vp]
     lib.rad_candidate_filter.restype = ci

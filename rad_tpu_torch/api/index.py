@@ -6,6 +6,7 @@ The surface of ``rad_tpu.api.index.HNSWIndex`` (``add``/``build``/
     index = HNSWIndex(ndim=1024, connectivity=16)
     index.add(keys, packed_fps)
     index.build()                      # exact all-pairs builder
+    d, keys = index.search(queries, k=10)   # graph beam search
     index.save("library.rad.npz"); HNSWIndex.load(path)
 
 ``device`` picks where the build runs; ``None`` means the first CUDA
@@ -128,21 +129,37 @@ class HNSWIndex:
 
     # --------------------------------------------------------------- search
     def search(self, queries, k: int = 10,
-               expansion_search: int | None = None, exact: bool = False):
+               expansion_search: int | None = None, exact: bool = False,
+               backend: str | None = None,
+               prefix_filter: int | None = None,
+               prefix_keep: int | None = None):
         """Batched k-NN by Tanimoto distance → ``(dists [B, k], keys [B,
-        k])``. Only ``exact=True`` (brute force) is ported; the graph beam
-        search is ROADMAP Queue 1 item 8."""
-        if not exact:
+        k])`` numpy arrays: brute force with ``exact=True``, else the graph
+        beam search (:func:`rad_tpu_torch.search.knn.search_device`) with
+        ``expansion_search`` (default: the index's) on the index's device.
+        The reference's ``backend="native"`` host search and its prefix
+        screen are not ported."""
+        if backend == "native" and not exact:
             raise NotImplementedError(
-                "graph beam search is not ported yet (ROADMAP Queue 1 item "
-                "8); pass exact=True for brute force")
-        from rad_tpu_torch.fp.pack import to_torch_packed
-        from rad_tpu_torch.fp.tanimoto import bruteforce_topk
-
+                "backend='native': the C++ host search is not ported "
+                "(ROADMAP Queue 1 item 8)")
+        queries = coerce_packed(queries, self.ndim)
         g = self.graph
-        q = to_torch_packed(coerce_packed(queries, self.ndim), self.device)
-        db = to_torch_packed(np.asarray(g.packed), self.device)
-        d, ids = bruteforce_topk(q, db, k)
+        if exact:
+            from rad_tpu_torch.fp.pack import to_torch_packed
+            from rad_tpu_torch.fp.tanimoto import bruteforce_topk
+
+            q = to_torch_packed(queries, self.device)
+            db = to_torch_packed(np.asarray(g.packed), self.device)
+            d, ids = bruteforce_topk(q, db, k)
+        else:
+            from rad_tpu_torch.search.knn import search_device
+
+            d, ids = search_device(
+                g, queries, k=k,
+                expansion_search=expansion_search or self.expansion_search,
+                prefix_filter=prefix_filter, prefix_keep=prefix_keep,
+                device=self.device)
         d, ids = d.cpu().numpy(), ids.cpu().numpy()
         kv = host_keys_view(g.keys)
         keys = np.where(ids >= 0, np.asarray(kv[np.maximum(ids, 0)]), -1)

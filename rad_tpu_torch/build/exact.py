@@ -4,20 +4,22 @@ The single-device path of :func:`rad_tpu.build.exact.build_hnsw_exact`,
 edge-identical to it:
 
 1. sample all levels up front and order nodes level-descending;
-2. per layer (top -> 0): blocked exact top-K among the layer's nodes —
+2. per layer (top -> 0): top-K candidates among the layer's nodes —
    big layers through :func:`~rad_tpu_torch.fp.kernels.tanimoto_bucketmin`
    (one winner per ``block_bucket`` columns, so a query's self bucket
    loses its runner-up, exactly as in the reference), small layers through
    :func:`~rad_tpu_torch.fp.kernels.tanimoto_matrix` and an exact stable
-   top-K; a running top-K merge with one stable sort per block;
-3. the vectorized diversity heuristic over the exact candidate lists;
+   top-K; a running top-K merge with one stable sort per block. The
+   candidates are exact over all columns, or, with ``probes=``, over the
+   layer's cluster-probed subset (:mod:`rad_tpu_torch.build.probe`);
+3. the vectorized diversity heuristic over the candidate lists;
 4. symmetrization: forward + reverse edges sorted by (destination,
    distance, source); each row keeps its distance-best ``cap`` entrants.
 
 The reference's small-layer reduction is ``lax.approx_max_k``, which is an
 exact top-k everywhere but on a TPU; the port computes the exact stable
-top-k. The reference's probed, sharded, streamed, chunked, spanned and
-bucketed forms (and its dispatch bounding) are not ported.
+top-k. The reference's sharded, streamed, chunked, spanned and bucketed
+forms (and its dispatch bounding) are not ported.
 """
 
 from __future__ import annotations
@@ -41,12 +43,10 @@ __all__ = ["build_hnsw_exact"]
 
 INF = float("inf")
 
-# arguments of rad_tpu's builder whose forms this package does not carry
-_UNPORTED = ("approx_recall", "bucket_approx", "bucket_q_tile",
-             "bucket_n_tile", "pairs_per_dispatch", "probes", "probe_csize",
-             "probe_sample", "probe_granularity", "probe_width",
-             "probe_min_n", "stream_select", "mesh", "mesh_axis",
-             "use_pallas", "interpret")
+# arguments of rad_tpu's builder whose forms this package does not carry,
+# with the ROADMAP Queue 1 item that holds each
+_UNPORTED = {"approx_recall": 7, "pairs_per_dispatch": 7, "use_pallas": 7,
+             "interpret": 7, "mesh": 12, "mesh_axis": 12}
 
 
 def _merge_topk(cat_d, cat_i, k: int):
@@ -57,13 +57,14 @@ def _merge_topk(cat_d, cat_i, k: int):
 
 
 def _allpairs_topk(packed, pops, n_real: int, k: int, q_block: int,
-                   col_block: int, bucket: int | None):
+                   col_block: int, bucket: int | None, approx: bool = False):
     """Top-k neighbor (dists, ids) of every row of ``packed`` among rows
     ``< n_real`` (self excluded), blocked in both dimensions.
 
     packed: [N_pad, W]; rows past ``n_real`` are padding (or real rows of
     non-members on upper layers) and are masked by id. Returns ``[N_pad,
     k]`` f32 / int32, ascending, INF/-1 tails; padded query rows are junk.
+    ``approx`` runs the bucket kernel's approximate-reciprocal epilogue.
     """
     n_pad = packed.shape[0]
     dev = packed.device
@@ -71,12 +72,12 @@ def _allpairs_topk(packed, pops, n_real: int, k: int, q_block: int,
     out_i = torch.empty((n_pad, k), dtype=torch.int32, device=dev)
     for q0 in range(0, n_pad, q_block):
         out_d[q0:q0 + q_block], out_i[q0:q0 + q_block] = _one_qblock(
-            packed, pops, q0, n_real, k, q_block, col_block, bucket)
+            packed, pops, q0, n_real, k, q_block, col_block, bucket, approx)
     return out_d, out_i
 
 
 def _one_qblock(packed, pops, q0: int, n_real: int, k: int, q_block: int,
-                col_block: int, bucket: int | None):
+                col_block: int, bucket: int | None, approx: bool):
     """Top-k (dists, ids) of query rows ``[q0, q0 + q_block)`` against
     every column block (the reference's ``_make_one_qblock``)."""
     n_pad = packed.shape[0]
@@ -92,7 +93,8 @@ def _one_qblock(packed, pops, q0: int, n_real: int, k: int, q_block: int,
         db = packed[c0:c0 + col_block]
         db_pops = pops[c0:c0 + col_block]
         if bucket is not None:
-            keys = tanimoto_bucketmin(q, db, bucket, q_pops, db_pops)
+            keys = tanimoto_bucketmin(q, db, bucket, q_pops, db_pops,
+                                      approx=approx)
             blk_d, local = decode_bucket_keys(keys, bucket)
             blk_i = c0 + local
             bad = (blk_i >= n_real) | (blk_i == q_ids)
@@ -107,6 +109,136 @@ def _one_qblock(packed, pops, q0: int, n_real: int, k: int, q_block: int,
         best_d, best_i = _merge_topk(torch.cat([best_d, blk_d], 1),
                                      torch.cat([best_i, blk_i], 1), k)
     return best_d, best_i
+
+
+def _one_qblock_probed(packed_cl, pops_cl, perm_cl, cols, q0: int, k: int,
+                       q_block: int, csize: int, bucket: int | None,
+                       approx: bool):
+    """Top-k (dists, permuted positions) of permuted query rows ``[q0, q0
+    + q_block)`` over the clusters ``cols`` (ascending, −1 dead) — the
+    reference's ``_make_one_qblock_probed``. Everything is in permuted
+    space: ``perm_cl[p]`` is the layer id at position ``p`` (−1 pads).
+
+    A dead probe is skipped: its block is all masked, and merging an
+    all-INF block after the running best changes nothing (the stable sort
+    keeps the running entries first)."""
+    dev = packed_cl.device
+    q = packed_cl[q0:q0 + q_block]
+    q_pops = pops_cl[q0:q0 + q_block]
+    q_pos = torch.arange(q0, q0 + q_block, dtype=torch.int32,
+                         device=dev)[:, None]
+    col_ids = torch.arange(csize, dtype=torch.int32, device=dev)
+    best_d = torch.full((q_block, k), INF, device=dev)
+    best_i = torch.full((q_block, k), -1, dtype=torch.int32, device=dev)
+    for ci in cols:
+        if ci < 0:
+            continue
+        c0 = ci * csize
+        db = packed_cl[c0:c0 + csize]
+        db_pops = pops_cl[c0:c0 + csize]
+        blk_perm = perm_cl[c0:c0 + csize]
+        if bucket is not None:
+            keys = tanimoto_bucketmin(q, db, bucket, q_pops, db_pops,
+                                      approx=approx)
+            blk_d, local = decode_bucket_keys(keys, bucket)
+            blk_pos = c0 + local
+            bad = (blk_perm[local.long()] < 0) | (blk_pos == q_pos)
+            blk_d = blk_d.masked_fill(bad, INF)
+            blk_i = blk_pos.masked_fill(bad, -1)
+        else:
+            d = tanimoto_matrix(q, db, q_pops, db_pops)
+            pos = (c0 + col_ids)[None, :]
+            d = d.masked_fill((blk_perm[None, :] < 0) | (pos == q_pos), INF)
+            blk_d, blk_i = _merge_topk(d, pos.expand(q_block, -1), k)
+        best_d, best_i = _merge_topk(torch.cat([best_d, blk_d], 1),
+                                     torch.cat([best_i, blk_i], 1), k)
+    return best_d, best_i
+
+
+def _allpairs_topk_probed(packed_l, pops_l, n_real: int, k: int,
+                          q_block: int, csize: int, bucket: int | None,
+                          probes: int, probe_sample: int, seed: int,
+                          packed_host: np.ndarray,
+                          probe_granularity: str = "qblock",
+                          probe_width: int | None = None,
+                          bucket_approx: bool = False,
+                          times: dict | None = None):
+    """Cluster-probed top-k: the subquadratic form of
+    :func:`_allpairs_topk`.
+
+    Partitions the layer's ``n_real`` rows into ``C = ceil(n_real /
+    csize)`` balanced clusters (:func:`~rad_tpu_torch.build.probe.
+    bisect_clusters`), gives each query block (``probe_granularity=
+    "qblock"``) or each cluster (``"cluster"``) a ``probes``-long probe
+    list, and scans each real query block only against its probed
+    clusters. Candidates are exact within the probed set. ``probe_width``
+    pads the probe lists with dead (−1) probes, which change nothing.
+
+    Returns ``[N_pad, k]`` (dists, layer ids), ascending, INF/−1 tails —
+    :func:`_allpairs_topk`'s convention. ``times``, when given, gets the
+    seconds of the partition (``"bisection"``) and the probe lists
+    (``"probe_tables"``) added.
+    """
+    from rad_tpu_torch.build.probe import (bisect_clusters, cluster_probes,
+                                           qblock_probes)
+
+    n_pad = packed_l.shape[0]
+    dev = packed_l.device
+    if csize % q_block:
+        raise ValueError(f"probe csize {csize} must be a multiple of "
+                         f"q_block {q_block}")
+    if k > csize:
+        raise ValueError(f"candidates k={k} exceeds probe csize {csize}")
+    t0 = time.perf_counter()
+    perm = bisect_clusters(packed_host, csize, seed=seed, dev_rows=packed_l)
+    t1 = time.perf_counter()
+    if probe_granularity == "qblock":
+        probe_tab = qblock_probes(packed_host, perm, csize, q_block, probes,
+                                  sample=probe_sample, seed=seed + 1,
+                                  device=dev)
+    elif probe_granularity == "cluster":
+        probe_tab = cluster_probes(packed_host, perm, csize, probes,
+                                   sample=probe_sample, seed=seed + 1,
+                                   device=dev)
+    else:
+        raise ValueError(
+            f"unknown probe_granularity {probe_granularity!r}")
+    if probe_width is not None and probe_width > probe_tab.shape[1]:
+        probe_tab = np.pad(probe_tab,
+                           ((0, 0), (0, probe_width - probe_tab.shape[1])),
+                           constant_values=-1)
+    t2 = time.perf_counter()
+    if times is not None:
+        times["bisection"] = times.get("bisection", 0.0) + t1 - t0
+        times["probe_tables"] = times.get("probe_tables", 0.0) + t2 - t1
+
+    # the cluster-contiguous copy of the layer; pad positions hold zeros
+    perm_cl = torch.from_numpy(perm).to(dev)
+    src = torch.clamp(perm_cl, min=0).long()
+    pad = (perm_cl < 0)
+    packed_cl = packed_l[src].masked_fill_(pad[:, None], 0)
+    pops_cl = pops_l[src].masked_fill_(pad, 0)
+    del src
+    nq = perm.size // q_block
+    # per-qblock lists index directly; per-cluster lists by q-block // qpc
+    # (nq == C only when csize == q_block, where they agree)
+    sdiv = 1 if probe_tab.shape[0] == nq else csize // q_block
+    # pads occupy the tail of permuted space: only real q-blocks are scanned
+    nq_real = -(-n_real // q_block)
+    # one trailing sentinel row absorbs the pad positions' writes
+    out_d = torch.full((n_pad + 1, k), INF, device=dev)
+    out_i = torch.full((n_pad + 1, k), -1, dtype=torch.int32, device=dev)
+    for qi in range(nq_real):
+        q0 = qi * q_block
+        bd, bpos = _one_qblock_probed(
+            packed_cl, pops_cl, perm_cl, probe_tab[qi // sdiv].tolist(), q0,
+            k, q_block, csize, bucket, bucket_approx)
+        rows = perm_cl[q0:q0 + q_block]
+        rows = torch.where(rows >= 0, rows, n_pad).long()
+        out_d[rows] = bd
+        out_i[rows] = torch.where(
+            bpos >= 0, perm_cl[torch.clamp(bpos, min=0).long()], -1)
+    return out_d[:n_pad], out_i[:n_pad]
 
 
 def _select_layer(packed, pops, cand_d, cand_id, n_real: int, m: int,
@@ -194,7 +326,17 @@ def build_hnsw_exact(
     col_block: int = 1 << 13,
     sel_block: int = 2048,
     block_bucket: int | None = 64,
+    bucket_approx: bool = False,
+    bucket_q_tile: int | None = None,
+    bucket_n_tile: int | None = None,
     symm_mode: str | None = None,
+    probes: int | None = None,
+    probe_csize: int | None = None,
+    probe_sample: int = 16,
+    probe_granularity: str = "qblock",
+    probe_width: int | None = None,
+    probe_min_n: int = 2_000_000,
+    stream_select: bool | str = "auto",
     device="cpu",
     stage_times: dict | None = None,
     **unported,
@@ -207,27 +349,54 @@ def build_hnsw_exact(
     ``max(heuristic_k, 4*M)``) is the exact-kNN depth fed to the
     heuristic; ``block_bucket`` selects the fused bucket reduction on
     layers of at least ``max(q_block, col_block, sel_block)`` nodes
-    (``None`` disables it). ``symm_mode`` accepts ``None``/``"sort"`` —
-    the reference's other forms are bit-identical workarounds that are not
-    ported.
+    (``None`` disables it). ``bucket_approx`` runs the bucket kernel's
+    approximate-reciprocal epilogue (candidate order can differ at
+    near-ties; selection recomputes the chosen distances exactly).
+    ``bucket_q_tile``/``bucket_n_tile`` are the reference's Pallas tilings:
+    accepted, and they change no result. ``symm_mode`` accepts
+    ``None``/``"sort"`` — the reference's other forms are bit-identical
+    workarounds that are not ported.
+
+    ``probes`` switches large layers to the subquadratic cluster-probed
+    candidate stage (:func:`_allpairs_topk_probed`): ``probe_csize``-row
+    clusters (default: the layer's column block), each query block
+    scanning its ``probes`` nearest clusters by min distance over
+    ``probe_sample`` sampled members. A layer probes when it has at least
+    ``probe_min_n`` nodes and ``4 * probes`` clusters, ``candidates`` fit
+    a cluster and the cluster is a whole number of q-blocks; a request
+    that probes no layer logs a warning. ``probe_granularity`` ("qblock"
+    / "cluster") and ``probe_width`` as in the reference.
+    ``stream_select`` "auto" and ``False`` keep the candidate tables
+    (streamed selection is bit-identical to it); ``True`` is not ported.
 
     ``device`` is where the fingerprints are uploaded and every stage
     runs: the CUDA kernels on a CUDA device, their plain twins on the CPU.
     ``stage_times``, when given, accumulates seconds per stage under
-    ``"candidates"``, ``"selection"`` and ``"symmetrization"`` (the device
-    is synchronized at each stage boundary for that).
+    ``"candidates"``, ``"selection"`` and ``"symmetrization"``, and, once
+    a layer probes, ``"bisection"`` and ``"probe_tables"`` (not part of
+    ``"candidates"``), and, when ``probes`` is given, lists this build's
+    probed layers under ``"probed_layers"``; the device is synchronized at each stage boundary
+    for that.
     """
     bad = sorted(k for k in unported if k in _UNPORTED)
     if bad:
         raise NotImplementedError(
             f"build_hnsw_exact: {bad} belong to forms of the reference "
-            f"builder that are not ported (ROADMAP Queue 1 item 7)")
+            f"builder that are not ported (ROADMAP Queue 1 item(s) "
+            f"{sorted({_UNPORTED[k] for k in bad})})")
     if unported:
         raise TypeError(f"unexpected arguments {sorted(unported)}")
     if symm_mode not in (None, "sort"):
         raise NotImplementedError(
             f"symm_mode={symm_mode!r}: only the 'sort' symmetrization is "
             f"ported (ROADMAP Queue 1 item 7)")
+    if stream_select is True:
+        raise NotImplementedError(
+            "stream_select=True: the streamed scan+select is not ported "
+            "(ROADMAP Queue 1 item 7); 'auto' and False build the same "
+            "graph")
+    if stream_select not in ("auto", False):
+        raise ValueError(f"stream_select={stream_select!r}")
     packed = np.ascontiguousarray(packed, dtype=np.uint32)
     n, w = packed.shape
     ndim = ndim or w * 32
@@ -245,6 +414,9 @@ def build_hnsw_exact(
     times = stage_times if stage_times is not None else {}
     for stage in ("candidates", "selection", "symmetrization"):
         times.setdefault(stage, 0.0)
+    probed_layers = []
+    if probes is not None:
+        times["probed_layers"] = probed_layers
 
     levels_raw = sample_levels(n, m, seed)
     order = np.lexsort((np.arange(n), -levels_raw))
@@ -301,10 +473,31 @@ def build_hnsw_exact(
         packed_l = dev_packed[:n_pad]
         pops_l = dev_pops[:n_pad]
         bkt = block_bucket if block_bucket and n_l >= big else None
+        csz = probe_csize or cb
+        use_probe = (probes is not None
+                     and n_l >= probe_min_n
+                     and -(-n_l // csz) >= 4 * probes
+                     and k <= csz
+                     and csz % qb == 0)
+        if probes is not None and not use_probe:
+            logger.info("layer %d (n=%d): probes=%d requested but layer "
+                        "stays exact (below probe_min_n=%d, or too few "
+                        "clusters, or k>csize)", l, n_l, probes,
+                        probe_min_n)
+        if use_probe:
+            probed_layers.append(l)
 
         t0 = time.perf_counter()
-        cand_d, cand_id = _allpairs_topk(packed_l, pops_l, n_l, k, qb, cb,
-                                         bkt)
+        part0 = _partition_seconds(times)
+        if use_probe:
+            cand_d, cand_id = _allpairs_topk_probed(
+                packed_l, pops_l, n_l, k, qb, csz, bkt, probes,
+                probe_sample, seed * 1_000_003 + 7919 * (l + 1),
+                packed[:n_l], probe_granularity, probe_width,
+                bucket_approx, times)
+        else:
+            cand_d, cand_id = _allpairs_topk(packed_l, pops_l, n_l, k, qb,
+                                             cb, bkt, bucket_approx)
         _sync_if(stage_times, device)
         t1 = time.perf_counter()
         sel, sel_d = _select_layer(packed_l, pops_l, cand_d, cand_id, n_l,
@@ -315,14 +508,24 @@ def build_hnsw_exact(
         rows = _symmetrize(sel, sel_d, n_l, cap)
         neighbors.append(rows[:n_l].cpu().numpy())
         t3 = time.perf_counter()
-        times["candidates"] += t1 - t0
+        # the partition and the probe lists count as stages of their own
+        times["candidates"] += t1 - t0 - (_partition_seconds(times) - part0)
         times["selection"] += t2 - t1
         times["symmetrization"] += t3 - t2
-        logger.info("layer %d (n=%d, %s): %.2fs candidates, %.2fs "
+        logger.info("layer %d (n=%d, %s%s): %.2fs candidates, %.2fs "
                     "selection, %.2fs symmetrization", l, n_l,
-                    f"bucket {bkt}" if bkt else "matrix", t1 - t0, t2 - t1,
-                    t3 - t2)
+                    f"bucket {bkt}" if bkt else "matrix",
+                    f", {probes} probes of {csz}" if use_probe else "",
+                    t1 - t0, t2 - t1, t3 - t2)
         del sel, sel_d, rows
+
+    if probes is not None and not probed_layers:
+        # a probed build was requested but every layer stayed exact
+        logger.warning(
+            "probes=%d requested but NO layer used the probed candidate "
+            "stage (all below probe_min_n=%d or too small) — this is a "
+            "fully exact build; pass probe_min_n=0 to force probing",
+            probes, probe_min_n)
 
     return HNSWGraph(
         packed=packed,
@@ -333,6 +536,10 @@ def build_hnsw_exact(
         ndim=ndim,
         connectivity=m,
     )
+
+
+def _partition_seconds(times: dict) -> float:
+    return times.get("bisection", 0.0) + times.get("probe_tables", 0.0)
 
 
 def _sync_if(stage_times, device) -> None:

@@ -11,11 +11,14 @@ and what bounds it on an H100):
   low ``log2(bucket)`` bits replaced by the in-bucket index, max over the
   bucket: winner sim AND position, equal sims to the larger index);
   replaces ``rad_tpu.fp.kernels.tanimoto_bucketmin_pallas``. Output is
-  ``[Q, N / bucket]``, the orientation the JAX wrapper returns.
+  ``[Q, N / bucket]``, the orientation the JAX wrapper returns. With
+  ``approx=True`` it runs the kernel's approximate-reciprocal epilogue
+  instance (the reference's ``approx=True``).
 
 Each public wrapper runs its ``*_plain`` twin for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises. ``<wrapper>.launches`` counts
-kernel launches (the twin never counts).
+kernel launches (the twin never counts); the approximate epilogue counts in
+``tanimoto_bucketmin.approx_launches``.
 
 Inputs are int32 bit-views of packed uint32 words; popcounts may be passed
 precomputed (int32) to skip recounting.
@@ -77,13 +80,18 @@ def _pops(packed, pops):
     return popcount_rows(packed) if pops is None else pops
 
 
-def _similarity_plain(q, db, q_pops, db_pops) -> torch.Tensor:
+def _similarity_plain(q, db, q_pops, db_pops,
+                      approx: bool = False) -> torch.Tensor:
     """``[Q, N]`` f32 similarity: exact intersections from an fp32 matmul
-    of unpacked bits, then the kernels' epilogue."""
+    of unpacked bits, then the kernels' epilogue — with ``approx``, the
+    f32 reciprocal of ``max(union, 1)`` times the intersection."""
     with exact_fp32_matmul():
         inter = unpack_bitmajor(q) @ unpack_bitmajor(db).T
     union = (_pops(q, q_pops).to(torch.float32)[:, None]
              + _pops(db, db_pops).to(torch.float32)[None, :]) - inter
+    if approx:
+        sim = inter * torch.reciprocal(torch.clamp(union, min=1.0))
+        return torch.where(union > 0, sim, torch.ones_like(sim))
     return similarity_from_counts(inter, union)
 
 
@@ -99,12 +107,12 @@ def tanimoto_matrix_plain(q: torch.Tensor, db: torch.Tensor,
 def tanimoto_bucketmin_plain(q: torch.Tensor, db: torch.Tensor,
                              bucket: int = 64,
                              q_pops: torch.Tensor | None = None,
-                             db_pops: torch.Tensor | None = None
-                             ) -> torch.Tensor:
+                             db_pops: torch.Tensor | None = None,
+                             approx: bool = False) -> torch.Tensor:
     """Plain-torch twin of :func:`tanimoto_bucketmin`: ``[Q, N/bucket]``
     int32 keys."""
     _check_bucket(db.shape[0], bucket)
-    sim = _similarity_plain(q, db, q_pops, db_pops)
+    sim = _similarity_plain(q, db, q_pops, db_pops, approx)
     local = torch.arange(db.shape[0], dtype=torch.int32,
                          device=db.device) % bucket
     keys = (sim.view(torch.int32) & ~(bucket - 1)) | local
@@ -187,16 +195,14 @@ def tanimoto_bucketmin(q: torch.Tensor, db: torch.Tensor, bucket: int = 64,
     """Distance-min winner per ``bucket`` db rows as packed int32 keys
     ``[Q, N / bucket]``; decode with :func:`decode_bucket_keys`.
 
-    ``approx=True`` (the reference's approximate-reciprocal epilogue) is
-    not ported yet and raises ``NotImplementedError``."""
-    if approx:
-        raise NotImplementedError(
-            "the approximate-reciprocal bucket epilogue is not ported "
-            "(ROADMAP Queue 2 item 2)")
+    ``approx=True`` swaps the exact f32 divide for the approximate
+    reciprocal (the reference's ``approx=True``): winners can differ among
+    near-ties, and decoded distances by a few ulp."""
     _check_inputs(q, db, q_pops, db_pops)
     _check_bucket(db.shape[0], bucket)
     if q.device.type == "cpu":
-        return tanimoto_bucketmin_plain(q, db, bucket, q_pops, db_pops)
+        return tanimoto_bucketmin_plain(q, db, bucket, q_pops, db_pops,
+                                        approx)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if bucket > 64 or db.shape[0] % 64:
@@ -206,9 +212,13 @@ def tanimoto_bucketmin(q: torch.Tensor, db: torch.Tensor, bucket: int = 64,
     out = torch.empty((q.shape[0], db.shape[0] // bucket),
                       dtype=torch.int32, device=q.device)
     _launch("rad_tanimoto_bucketmin", q, db, q_pops, db_pops, bucket,
-            out=out)
-    tanimoto_bucketmin.launches += 1
+            int(approx), out=out)
+    if approx:
+        tanimoto_bucketmin.approx_launches += 1
+    else:
+        tanimoto_bucketmin.launches += 1
     return out
 
 
 tanimoto_bucketmin.launches = 0
+tanimoto_bucketmin.approx_launches = 0

@@ -748,14 +748,17 @@ def fused_run(state: TraversalState, dg: DeviceGraph, packed: torch.Tensor,
 def make_device_run(dg: DeviceGraph, packed: torch.Tensor,
                     pops: torch.Tensor, scorer, batch: int,
                     max_steps: int = 1 << 20,
-                    narrow_width: int | None = None):
+                    narrow_width: int | None = None,
+                    fused_candidates: bool = False):
     """A traversal loop around any torch scorer.
 
     ``scorer(packed_rows, pop_rows) -> [K]`` receives ``packed[ids]`` and
     ``pops[ids]`` for the step's ``to_score`` ids (padding gathers row 0),
     whatever their dtype: an MLP over fingerprint bits, a similarity, or a
     score table passed as ``pops``. Its output is cast to f32 and padding
-    slots become +inf. ``narrow_width`` as in :func:`fused_run`.
+    slots become +inf. ``narrow_width`` and ``fused_candidates`` (an
+    option the reference's ``make_device_run`` does not have) as in
+    :func:`fused_run`.
 
     Returns ``run(state, n_to_score, step_budget=None) -> state``; the
     step budget defaults to ``max_steps``."""
@@ -769,7 +772,7 @@ def make_device_run(dg: DeviceGraph, packed: torch.Tensor,
             step_budget=None) -> TraversalState:
         budget = max_steps if step_budget is None else step_budget
         return _device_loop(state, dg, score, n_to_score, batch, budget,
-                            narrow_width, False)
+                            narrow_width, fused_candidates)
 
     return run
 

@@ -84,7 +84,7 @@ def test_search_exact_matches_reference(library):
     np.testing.assert_array_equal(k, rk)
     assert k[0, 0] == keys[0] and d[0, 0] == 0
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        port.search(fps[:5], k=10)
+        port.search(fps[:5], k=10, backend="native")
     with pytest.raises(NotImplementedError):
         rad_tpu_torch.HNSWIndex().build(backend="native")
 
@@ -148,6 +148,7 @@ def test_port_never_loads_jax():
         t.traverse(n_to_score=30)
         assert len(t.get_best_molecules(5)) == 5
         t.shutdown()
+        assert index.search(fps[:3], k=3)[1].shape == (3, 3)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "rad_tpu"))
         assert not bad, bad

@@ -100,7 +100,9 @@ def test_symmetrize_matches_three_key_sort():
 
 def test_unported_forms_raise(fps):
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        build_hnsw_exact(fps[:64], probes=4)
+        build_hnsw_exact(fps[:64], stream_select=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item"):
+        build_hnsw_exact(fps[:64], mesh=object())
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         build_hnsw_exact(fps[:64], symm_mode="chunked")
     with pytest.raises(TypeError):

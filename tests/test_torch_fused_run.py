@@ -179,6 +179,10 @@ def test_make_device_run_respects_budget(case):
 def test_make_device_run_narrow_width_agrees(case, narrow):
     full = _port_device_run(case, 10 ** 9)
     got = _port_device_run(case, 10 ** 9, narrow_width=narrow)
+    assert_states_equal(
+        _port_device_run(case, 10 ** 9, narrow_width=narrow,
+                         fused_candidates=True),
+        dev.state_to_reference_arrays(got))
     assert int(got.n_scored) > 290
     assert_states_equal(got, dev.state_to_reference_arrays(full))
     assert_states_equal(got, _ref_device_run(case, 10 ** 9,

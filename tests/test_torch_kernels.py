@@ -5,7 +5,10 @@ Pallas kernels in interpret mode, as tests/test_kernels.py does. Bucket
 keys must be array-equal (they are the bits of the f32 similarity); the
 distance matrix is held to atol 1e-6 — the f32 operation order is the
 same, so equality is expected, and the tolerance only absorbs one ulp
-should XLA's CPU code reorder. The ``gpu`` tests compare each CUDA kernel
+should XLA's CPU code reorder. The approximate-reciprocal bucket epilogue
+is held to the 2e-3 bounds of tests/test_kernels.py: the interpret-mode
+Pallas kernel lowers its approximate reciprocal through bfloat16, the
+twin takes the f32 reciprocal. The ``gpu`` tests compare each CUDA kernel
 with its twin on the card and skip without one.
 """
 
@@ -77,12 +80,50 @@ def test_wrapper_validation(data):
     tq, tdb = to_torch_packed(q, "cpu"), to_torch_packed(db, "cpu")
     with pytest.raises(ValueError):
         kernels.tanimoto_bucketmin(tq, tdb, bucket=48)
-    with pytest.raises(NotImplementedError):
-        kernels.tanimoto_bucketmin(tq, tdb, approx=True)
+    before = kernels.tanimoto_bucketmin.approx_launches
+    assert kernels.tanimoto_bucketmin(tq, tdb, approx=True).shape == (256, 16)
+    assert kernels.tanimoto_bucketmin.approx_launches == before  # twin
     with pytest.raises(TypeError):
         kernels.tanimoto_matrix(tq.to(torch.int64), tdb.to(torch.int64))
     with pytest.raises(ValueError):
         kernels.tanimoto_matrix(tq, tdb[:, :4])
+
+
+def _true_dists(q, db):
+    return np.asarray(ref_swar_matrix(jnp.asarray(q), jnp.asarray(db)))
+
+
+def test_bucket_approx_twin_within_pallas_bounds(data):
+    """Both approximate epilogues pick an entry whose true distance is
+    within 2e-3 of the bucket minimum, decode within 2e-3 of it, and
+    agree with each other within 2e-3; ids stay in their bucket."""
+    q, db = data
+    bucket = 64
+    ref_keys = tanimoto_bucketmin_pallas(
+        jnp.asarray(q), jnp.asarray(db), bucket=bucket, q_tile=128,
+        n_tile=256, interpret=True, approx=True)
+    rd, rgid = (np.asarray(a) for a in ref_decode(ref_keys, bucket))
+    keys = kernels.tanimoto_bucketmin(to_torch_packed(q, "cpu"),
+                                      to_torch_packed(db, "cpu"), bucket,
+                                      approx=True)
+    d, gid = (a.numpy() for a in kernels.decode_bucket_keys(keys, bucket))
+    true = _true_dists(q, db)
+    bucket_min = true.reshape(true.shape[0], -1, bucket).min(axis=2)
+    rows = np.arange(true.shape[0])[:, None]
+    col = np.arange(keys.shape[1]) * bucket
+    for dd, g in ((d, gid), (rd, rgid)):
+        chosen = true[rows, g]
+        np.testing.assert_allclose(chosen, bucket_min, atol=2e-3)
+        np.testing.assert_allclose(dd, chosen, atol=2e-3)
+        assert ((g >= col) & (g < col + bucket)).all()
+    np.testing.assert_allclose(d, rd, atol=2e-3)
+    # the f32 reciprocal is within an ulp of the divide: the twin's
+    # winners are the exact epilogue's up to truncation-boundary near-ties
+    exact_gid = kernels.decode_bucket_keys(kernels.tanimoto_bucketmin(
+        to_torch_packed(q, "cpu"), to_torch_packed(db, "cpu"), bucket),
+        bucket)[1].numpy()
+    np.testing.assert_allclose(true[rows, gid], true[rows, exact_gid],
+                               atol=1e-6)
 
 
 def test_exact_fp32_matmul_restores_flags():
@@ -125,3 +166,28 @@ def test_cuda_kernels_equal_twins(cuda, n_bits, nq, nn):
             tq, tdb, bucket)), bucket
     assert kernels.tanimoto_matrix.launches == launches[0] + 2
     assert kernels.tanimoto_bucketmin.launches == launches[1] + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bits,nq,nn", [(1024, 4096, 8192), (256, 64, 640)])
+def test_cuda_bucket_approx_within_twin_bounds(cuda, n_bits, nq, nn):
+    """The rcp.approx epilogue against the f32-reciprocal twin on the
+    card: decoded distances within 2^-14, and the chosen entries' true
+    distances within 1e-6 of each other."""
+    q = random_fingerprints(nq, n_bits=n_bits, density=0.12, seed=5)
+    db = random_fingerprints(nn, n_bits=n_bits, density=0.12, seed=6)
+    db[7] = q[1]
+    tq, tdb = to_torch_packed(q, cuda), to_torch_packed(db, cuda)
+    before = kernels.tanimoto_bucketmin.approx_launches
+    for bucket in (16, 64):
+        keys = kernels.tanimoto_bucketmin(tq, tdb, bucket, approx=True)
+        torch.cuda.synchronize()
+        plain = kernels.tanimoto_bucketmin_plain(tq, tdb, bucket,
+                                                 approx=True)
+        d, gid = kernels.decode_bucket_keys(keys, bucket)
+        pd, pgid = kernels.decode_bucket_keys(plain, bucket)
+        assert float((d - pd).abs().max()) <= 2.0 ** -14, bucket
+        true = kernels.tanimoto_matrix_plain(tq, tdb)
+        diff = (true.gather(1, gid.long()) - true.gather(1, pgid.long()))
+        assert float(diff.abs().max()) <= 1e-6, bucket
+    assert kernels.tanimoto_bucketmin.approx_launches == before + 2
