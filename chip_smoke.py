@@ -11,8 +11,11 @@ Phases, one status line each (plus detail lines):
    shapes its path gives it (1024-bit fingerprints; 2,048 candidates over
    the 1M graph's 1,000,000 ids and 1,066,610 rows): array-equal (the
    bucket kernel's approximate-reciprocal epilogue: decoded distances
-   within 2^-14 and chosen entries' true distances within 1e-6), and both
-   timed with CUDA events;
+   within 2^-14 and chosen entries' true distances within 1e-6), both
+   timed with CUDA events, beside the kernel's bound on the card (the
+   larger of its int8 tensor-core operations over 1,979 TOP/s and its
+   bytes over 3.35 TB/s) and, for the Tanimoto kernels, one bf16
+   ``torch.mm`` of the unpacked bits (the intersections alone);
 3. a 16,384-row library built with ``build_hnsw_exact`` on the card and on
    the CPU (twins): edge-identical on every layer; then the same traversal
    on both: identical scoring order;
@@ -41,7 +44,18 @@ Phases, one status line each (plus detail lines):
    1 % scored: at least half the true top-1000 found; (e) phase 4's 1M
    build again with ``bucket_approx=True``: at least 99 % of layer-0 slots
    equal; (f) a 32,768-row probed build on the card and on the CPU, both
-   granularities: edge-identical.
+   granularities: edge-identical;
+7. the 1-NN sweep of the repo's benchmark problem, 2048 queries x
+   1,048,576 rows x 1024 bits (``random_fingerprints``, density 0.1,
+   seed 0; the queries drawn with seed 1, not from the library): (a) ``tanimoto_nn`` array-equal to its twin and to the
+   ``matmul`` path's minima; (b) the fast epilogue at n_tile 2048 and
+   1024: decoded distances within 2^-12 of the twin's, chosen ids' true
+   distances within 2^-12 of the exact minima; (c) the floor, unpack and
+   epilogue probes at q_tile 512, n_tile 1024 array-equal to their twins
+   (newton within 1e-6); each kernel timed against its twin; then the
+   entry points with launch counters: (d) ``rad_tpu_torch.bench.main``
+   with its defaults, (e) ``rad_tpu_torch.bench_kernel_variants.main``
+   over every kernel's variants.
 
 The last three lines are the card's ``nvidia-smi`` line, a JSON object
 describing each kernel, and ``{"ok": true, "device": {...}}``. Any failed
@@ -51,6 +65,8 @@ The script imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -61,12 +77,14 @@ import time
 import numpy as np
 import torch
 
-from rad_tpu_torch import HNSWIndex, _cuda, create_local_traverser
+from rad_tpu_torch import (HNSWIndex, _cuda, bench, bench_kernel_variants,
+                           create_local_traverser)
 from rad_tpu_torch.build.exact import build_hnsw_exact
 from rad_tpu_torch.fp import kernels
 from rad_tpu_torch.fp.pack import (popcount_rows, random_fingerprints,
                                    to_torch_packed)
-from rad_tpu_torch.fp.tanimoto import tanimoto_rows_to_target
+from rad_tpu_torch.fp.tanimoto import (tanimoto_distance,
+                                       tanimoto_rows_to_target)
 from rad_tpu_torch.store import InMemorySmilesStore
 from rad_tpu_torch.synthetic import make_library
 from rad_tpu_torch.traverse import candidate_ops
@@ -95,6 +113,22 @@ KERNELS = {
         wrapper=candidate_ops.integrate_candidates,
         source="rad_tpu_torch/csrc/candidates.cu",
         replaces="rad_tpu/traverse/pallas_ops.py:102"),
+    "tanimoto_nn": dict(
+        wrapper=kernels.tanimoto_nn,
+        source="rad_tpu_torch/csrc/tanimoto.cu",
+        replaces="rad_tpu/fp/kernels.py:354"),
+    "tanimoto_nn_approx": dict(
+        wrapper=kernels.tanimoto_nn, counter="approx_launches",
+        source="rad_tpu_torch/csrc/tanimoto.cu",
+        replaces="rad_tpu/fp/kernels.py:354"),
+    "nn_floor": dict(
+        wrapper=kernels.nn_floor,
+        source="rad_tpu_torch/csrc/tanimoto.cu",
+        replaces="benchmarks/bench_kernel_variants.py:40"),
+    "nn_epilogue_probe": dict(
+        wrapper=kernels.nn_epilogue_probe,
+        source="rad_tpu_torch/csrc/tanimoto.cu",
+        replaces="benchmarks/bench_kernel_variants.py:134"),
 }
 N = 1_000_000            # main-path library: molecules x 1024 bits
 N_TO_SCORE = N // 100    # main-path budget: 1% scored
@@ -111,6 +145,11 @@ N10 = 10_000_000         # phase 6's library
 REF_RECALL = {"edge": (0.558, 0.03), "ef32": (0.7064, 0.03),
               "ef128": (0.9000, 0.03)}
 EDGE_REF_TOL = 0.01
+NQ, NN = 2048, 1 << 20   # phase 7: the repo's benchmark problem
+# published peaks of one H100 SXM (NVIDIA's data sheet): dense int8
+# tensor-core operations and HBM3 bytes per second
+PEAK_INT8_OPS = 1979e12
+PEAK_BYTES = 3.35e12
 
 
 class CheckFailed(RuntimeError):
@@ -162,13 +201,45 @@ def phase_device() -> str:
     return smi
 
 
-def _turns(kernel_fn, plain_fn):
+def _turns(kernel_fn, plain_fn, iters: int = 10, warmup: int = 2):
     """plain, kernel, kernel, plain — then the mean of each pair."""
-    p1 = time_ms(plain_fn)
-    k1 = time_ms(kernel_fn)
-    k2 = time_ms(kernel_fn)
-    p2 = time_ms(plain_fn)
+    p1 = time_ms(plain_fn, iters, warmup)
+    k1 = time_ms(kernel_fn, iters, warmup)
+    k2 = time_ms(kernel_fn, iters, warmup)
+    p2 = time_ms(plain_fn, iters, warmup)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take: operations over the int8 peak
+    or bytes over the memory rate, whichever is larger."""
+    t_ops = ops / PEAK_INT8_OPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def _tanimoto_bound(nq: int, nn: int, w: int, out_bytes: int) -> dict:
+    """2*Q*N*D int8 operations; packed rows and popcounts read once, the
+    output written once."""
+    return _bound(2.0 * nq * nn * 32 * w, (nq + nn) * (4 * w + 4)
+                  + out_bytes)
+
+
+def _library_ms(q, db, iters: int = 10) -> float:
+    """One bf16 ``torch.mm`` of the unpacked bits with f32 sums: the
+    intersections the Tanimoto kernels share, as a library computes
+    them."""
+    qb, dbb = bench.unpack_to_dtype(q), bench.unpack_to_dtype(db)
+    return time_ms(lambda: bench.intersections_bf16(qb, dbb), iters,
+                   warmup=1)
+
+
+def _fmt(r: dict) -> str:
+    lib = r.get("library_ms")
+    return (f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms; bound "
+            f"{r['bound_ms']:.4g} ms by {r['bound_by']}"
+            + (f"; bf16 torch.mm {lib:.4f} ms" if lib is not None else ""))
 
 
 def phase_kernels(dev) -> dict:
@@ -185,10 +256,13 @@ def phase_kernels(dev) -> dict:
     ms, plain_ms = _turns(
         lambda: kernels.tanimoto_bucketmin(q, db, 64, qp, dp),
         lambda: kernels.tanimoto_bucketmin_plain(q, db, 64, qp, dp))
-    results["tanimoto_bucketmin"] = dict(max_abs_err=float(err), ms=ms,
-                                         plain_ms=plain_ms)
+    lib_ms = _library_ms(q, db)
+    bound = _tanimoto_bound(4096, 8192, 32, 4096 * 128 * 4)
+    results["tanimoto_bucketmin"] = r = dict(
+        max_abs_err=float(err), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        **bound)
     print(f"[2 kernels] tanimoto_bucketmin 4096x8192 bucket 64: array-equal "
-          f"to plain; {ms:.3f} ms vs plain {plain_ms:.3f} ms", flush=True)
+          f"to plain; {_fmt(r)}", flush=True)
 
     keys = kernels.tanimoto_bucketmin(q, db, 64, qp, dp, approx=True)
     torch.cuda.synchronize()
@@ -207,13 +281,14 @@ def phase_kernels(dev) -> dict:
         lambda: kernels.tanimoto_bucketmin(q, db, 64, qp, dp, approx=True),
         lambda: kernels.tanimoto_bucketmin_plain(q, db, 64, qp, dp,
                                                  approx=True))
-    results["tanimoto_bucketmin_approx"] = dict(max_abs_err=err, ms=ms,
-                                                plain_ms=plain_ms)
+    results["tanimoto_bucketmin_approx"] = r = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        **bound)
     print(f"[2 kernels] tanimoto_bucketmin approx=True 4096x8192 bucket 64: "
           f"decoded distances within {err:.3g} of plain (bound 2^-14), "
           f"chosen entries' true distances within {chosen:.3g} (bound "
           f"1e-6), {int((gid != pgid).sum())} of {gid.numel()} winners "
-          f"differ; {ms:.3f} ms vs plain {plain_ms:.3f} ms", flush=True)
+          f"differ; {_fmt(r)}", flush=True)
 
     q = to_torch_packed(random_fingerprints(8192, 1024, 0.12, seed=3), dev)
     db = to_torch_packed(random_fingerprints(8192, 1024, 0.12, seed=4), dev)
@@ -227,10 +302,12 @@ def phase_kernels(dev) -> dict:
     ms, plain_ms = _turns(
         lambda: kernels.tanimoto_matrix(q, db, qp, dp),
         lambda: kernels.tanimoto_matrix_plain(q, db, qp, dp))
-    results["tanimoto_matrix"] = dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms)
+    results["tanimoto_matrix"] = r = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        library_ms=_library_ms(q, db),
+        **_tanimoto_bound(8192, 8192, 32, 8192 * 8192 * 4))
     print(f"[2 kernels] tanimoto_matrix 8192x8192: array-equal to plain; "
-          f"{ms:.3f} ms vs plain {plain_ms:.3f} ms", flush=True)
+          f"{_fmt(r)}", flush=True)
     results.update(_candidate_kernels(dev))
     return results
 
@@ -272,11 +349,14 @@ def _candidate_kernels(dev) -> dict:
     ms, plain_ms = _turns(
         lambda: candidate_ops.candidate_filter(cand, scored),
         lambda: candidate_ops.candidate_filter_plain(cand, scored))
-    results = {"candidate_filter": dict(max_abs_err=err, ms=ms,
-                                        plain_ms=plain_ms)}
+    # K ids read, one scored byte per valid id, K ids written
+    n_valid = int(((cand >= 0) & (cand < N)).sum())
+    results = {"candidate_filter": dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **_bound(0.0, 4 * K + n_valid + 4 * K))}
     print(f"[2 kernels] candidate_filter K={K} over N={N:,}: array-equal to "
-          f"plain ({int((ts >= 0).sum())} ids); {ms:.4f} ms vs plain "
-          f"{plain_ms:.4f} ms", flush=True)
+          f"plain ({int((ts >= 0).sum())} ids); "
+          f"{_fmt(results['candidate_filter'])}", flush=True)
 
     new_scores = torch.rand(K, device=dev)
     errs = {}
@@ -293,6 +373,8 @@ def _candidate_kernels(dev) -> dict:
             errs[f"{name}@{kt}"] = _max_abs_err(g, w)
         check(bool(got[3].any()) and bool(got[4].any()),
               "integrate_candidates case has no fresh id or no push")
+        if kt == K:
+            n_fresh, n_push = int(got[3].sum()), int(got[4].sum())
     err = max(errs.values())
     check(err == 0.0, f"integrate_candidates != plain: {errs}")
     # every timed call gets its own copy of the tables, as a step would
@@ -304,11 +386,18 @@ def _candidate_kernels(dev) -> dict:
             ts, new_scores, cand, row, *next(copies)),
         lambda: candidate_ops.integrate_candidates_plain(
             ts, new_scores, cand, row, *next(copies)))
-    results["integrate_candidates"] = dict(max_abs_err=err, ms=ms,
-                                           plain_ms=plain_ms)
+    # the four id/score vectors read; per valid id a scored byte read and,
+    # when fresh, a score and a byte written; per candidate an enqueued
+    # byte read; per push a byte written and a score read; the three
+    # masks written
+    n_ts = int((ts >= 0).sum())
+    nbytes = (16 * K + n_ts + 5 * n_fresh + K + 5 * n_push + K + K + 4 * K)
+    results["integrate_candidates"] = r = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **_bound(0.0, nbytes))
     print(f"[2 kernels] integrate_candidates kt=kc={K} (and kt={K // 2}), "
           f"N={N:,}, R={R:,}: every output and table array-equal to plain; "
-          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
+          f"{_fmt(r)}", flush=True)
     return results
 
 
@@ -703,6 +792,163 @@ def phase_probed_parity(dev) -> None:
               flush=True)
 
 
+def _nn_checks(q, db, qp, dp) -> dict:
+    """7a-7c: every 1-NN kernel against its twin at the full problem."""
+    err = {}
+    d, i = kernels.tanimoto_nn(q, db, q_pops=qp, db_pops=dp)
+    torch.cuda.synchronize()
+    pd, pi = kernels.tanimoto_nn_plain(q, db, q_pops=qp, db_pops=dp)
+    mm = bench.matmul_min_dist(db, q, 1 << 14)
+    err["tanimoto_nn"] = _max_abs_err(d, pd)
+    check(torch.equal(d, pd) and torch.equal(i, pi),
+          f"tanimoto_nn != plain (max abs err {err['tanimoto_nn']}, "
+          f"{int((i != pi).sum())} ids differ)")
+    check(torch.equal(d, mm), f"tanimoto_nn minima != the matmul path's "
+          f"(max abs err {_max_abs_err(d, mm)})")
+    print(f"[7a exact] tanimoto_nn {NQ} x {NN:,}: distances and ids "
+          f"array-equal to plain, distances to the matmul path's minima "
+          f"(mean min distance {float(d.mean()):.4f})", flush=True)
+
+    fast = []
+    for n_tile in (None, 1024):
+        fd, fi = kernels.tanimoto_nn(q, db, n_tile=n_tile, q_pops=qp,
+                                     db_pops=dp, approx=True)
+        torch.cuda.synchronize()
+        pfd, pfi = kernels.tanimoto_nn_plain(q, db, n_tile=n_tile, q_pops=qp,
+                                             db_pops=dp, approx=True)
+        derr = float((fd - pfd).abs().max())
+        chosen = float((tanimoto_distance(q, db[fi.long()]) - d).abs().max())
+        fast.append(derr)
+        check(derr <= 2.0 ** -12 and chosen <= 2.0 ** -12,
+              f"fast tanimoto_nn n_tile={n_tile}: decoded distances differ "
+              f"from plain by {derr}, chosen ids' true distances from the "
+              f"exact minima by {chosen} (bounds 2^-12)")
+        print(f"[7b fast] n_tile={n_tile or kernels.default_n_tile(NN)}: "
+              f"decoded distances within {derr:.3g} of plain, chosen ids' "
+              f"true distances within {chosen:.3g} of the exact minima "
+              f"(bounds 2^-12); {int((fi != pfi).sum())} ids differ from "
+              f"plain", flush=True)
+    err["tanimoto_nn_approx"] = max(fast)
+
+    floor = kernels.nn_floor_plain(q, db, 512, 1024)
+    unpack = kernels.nn_floor_plain(q, db, 512, 1024, mode="unpack")
+    for mode in (*bench_kernel_variants.FLOOR_MODES, "unpack"):
+        got = bench_kernel_variants.make_floor_kernel(512, 1024,
+                                                      mode=mode)(q, db)
+        torch.cuda.synchronize()
+        want = unpack if mode == "unpack" else floor
+        check(torch.equal(got[:, 0], want),
+              f"floor probe {mode} != plain ({_max_abs_err(got[:, 0], want)})")
+    err["nn_floor"] = 0.0
+    pk = bench_kernel_variants.make_epilogue_probe(512, 1024,
+                                                   mode="exact-pk")(q, db)
+    torch.cuda.synchronize()
+    pk_plain = kernels.nn_epilogue_probe_plain(q, db, 1024, "exact-pk")
+    check(torch.equal(pk[:, 0], pk_plain), "exact-pk probe != plain")
+    nt = bench_kernel_variants.make_epilogue_probe(512, 1024,
+                                                   mode="newton")(q, db)
+    torch.cuda.synchronize()
+    nerr = _max_abs_err(nt[:, 0], kernels.nn_epilogue_probe_plain(
+        q, db, 1024, "newton"))
+    check(nerr <= 1e-6, f"newton probe vs plain: {nerr} (bound 1e-6)")
+    err["nn_epilogue_probe"] = nerr
+    print(f"[7c probes] q_tile 512, n_tile 1024: floor (modes "
+          f"{', '.join(bench_kernel_variants.FLOOR_MODES)}), unpack and "
+          f"exact-pk array-equal to plain, newton within {nerr:.3g} (bound "
+          f"1e-6); max intersection {int(floor.max())}", flush=True)
+    return err
+
+
+def phase_nn(dev) -> tuple:
+    """7: the 1-NN kernels at the repo's benchmark problem, then the
+    port's benchmark entry points as the path that launches them."""
+    t0 = time.perf_counter()
+    db = to_torch_packed(random_fingerprints(NN, 1024, 0.1, seed=0), dev)
+    # fresh queries: bench.py's own (the library's first rows) would find
+    # themselves at distance 0
+    q = to_torch_packed(random_fingerprints(NQ, 1024, 0.1, seed=1), dev)
+    qp, dp = popcount_rows(q), popcount_rows(db)
+    check(int(dp.min()) > 0, "the library has an empty row")
+    print(f"[7 library] {NN:,} x 1024-bit, density 0.1, seed 0: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    errs = _nn_checks(q, db, qp, dp)
+
+    lib_ms = _library_ms(q, db, iters=3)
+    bound = _tanimoto_bound(NQ, NN, 32, NQ * 8)
+    timed = {
+        "tanimoto_nn": (
+            lambda: kernels.tanimoto_nn(q, db, q_pops=qp, db_pops=dp),
+            lambda: kernels.tanimoto_nn_plain(q, db, q_pops=qp, db_pops=dp)),
+        "tanimoto_nn_approx": (
+            lambda: kernels.tanimoto_nn(q, db, q_pops=qp, db_pops=dp,
+                                        approx=True),
+            lambda: kernels.tanimoto_nn_plain(q, db, q_pops=qp, db_pops=dp,
+                                              approx=True)),
+        "nn_floor": (lambda: kernels.nn_floor(q, db, 512, 1024),
+                     lambda: kernels.nn_floor_plain(q, db, 512, 1024)),
+        "nn_epilogue_probe": (
+            lambda: kernels.nn_epilogue_probe(q, db, 1024, "exact-pk", qp,
+                                              dp),
+            lambda: kernels.nn_epilogue_probe_plain(q, db, 1024, "exact-pk",
+                                                    qp, dp)),
+    }
+    results = {}
+    for name, (kernel_fn, plain_fn) in timed.items():
+        ms, plain_ms = _turns(kernel_fn, plain_fn, iters=3, warmup=1)
+        results[name] = r = dict(max_abs_err=errs[name], ms=ms,
+                                 plain_ms=plain_ms, library_ms=lib_ms,
+                                 **bound)
+        print(f"[7 timing] {name} {NQ} x {NN:,} x 1024 bits: {_fmt(r)}",
+              flush=True)
+    side = {
+        "unpack": (lambda: kernels.nn_floor(q, db, 512, 1024, "unpack"),
+                   lambda: kernels.nn_floor_plain(q, db, 512, 1024,
+                                                  "unpack")),
+        "newton": (lambda: kernels.nn_epilogue_probe(q, db, 1024, "newton",
+                                                     qp, dp),
+                   lambda: kernels.nn_epilogue_probe_plain(
+                       q, db, 1024, "newton", qp, dp)),
+    }
+    for mode, (kernel_fn, plain_fn) in side.items():
+        ms, plain_ms = _turns(kernel_fn, plain_fn, iters=3, warmup=1)
+        print(f"[7 timing] {mode} probe: {ms:.4f} ms vs plain "
+              f"{plain_ms:.4f} ms", flush=True)
+    del q, db, qp, dp
+    torch.cuda.empty_cache()
+
+    _reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main([])
+    launches = _counts("tanimoto_nn_approx")
+    for line in out.getvalue().splitlines():
+        print(f"[7d bench] {line}", flush=True)
+    check(rc == 0, f"rad_tpu_torch.bench.main returned {rc}")
+    metric = json.loads(out.getvalue().splitlines()[-1])
+    check(metric["metric"] == bench.METRIC and metric["value"] > 0,
+          f"bench's last line is not the metric: {metric}")
+    check(launches["tanimoto_nn_approx"] > 0,
+          "rad_tpu_torch.bench never launched tanimoto_nn(approx=True)")
+
+    _reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench_kernel_variants.main([
+            "--variants", "exact", "approx", "floor", "unpack", "exact-pk",
+            "newton"])
+    counts = _counts("tanimoto_nn", "tanimoto_nn_approx", "nn_floor",
+                     "nn_epilogue_probe")
+    for line in out.getvalue().splitlines():
+        print(f"[7e variants] {line}", flush=True)
+    check(rc == 0, f"rad_tpu_torch.bench_kernel_variants.main returned {rc}")
+    for name, count in counts.items():
+        check(count > 0, f"{name} never launched by bench_kernel_variants")
+    launches["tanimoto_nn_approx"] += counts.pop("tanimoto_nn_approx")
+    launches.update(counts)
+    print(f"[7 launches] {launches}", flush=True)
+    return results, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -718,6 +964,9 @@ def main() -> int:
         phase_probed_10m(dev)
         launches.update(phase_approx_1m(dev, context))
         phase_probed_parity(dev)
+        nn_timings, nn_launches = phase_nn(dev)
+        timings.update(nn_timings)
+        launches.update(nn_launches)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -63,6 +63,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rad_tanimoto_bucketmin.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci,
                                            ci, vp, vp]
     lib.rad_tanimoto_bucketmin.restype = ci
+    lib.rad_tanimoto_nn.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci, ci, vp,
+                                    vp]
+    lib.rad_tanimoto_nn.restype = ci
+    lib.rad_nn_unpack_probe.argtypes = [vp, ci, ci, ci, ci, ci, vp, vp]
+    lib.rad_nn_unpack_probe.restype = ci
     lib.rad_candidate_filter.argtypes = [vp, ci, vp, ci, vp, vp, vp]
     lib.rad_candidate_filter.restype = ci
     lib.rad_integrate_candidates.argtypes = [vp, vp, ci, vp, vp, ci, vp, vp,

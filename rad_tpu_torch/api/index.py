@@ -10,8 +10,8 @@ The surface of ``rad_tpu.api.index.HNSWIndex`` (``add``/``build``/
     index.save("library.rad.npz"); HNSWIndex.load(path)
 
 ``device`` picks where the build runs; ``None`` means the first CUDA
-device when torch sees one, else the CPU (where the kernels' plain twins
-run), and says so in a warning. Both ``backend="auto"`` and ``"exact"`` run
+device, and raises when torch sees none (pass ``device="cpu"`` to run the
+kernels' plain twins on the CPU). Both ``backend="auto"`` and ``"exact"`` run
 :func:`~rad_tpu_torch.build.exact.build_hnsw_exact`; the reference's host,
 native and beam builders are not ported.
 """
@@ -23,26 +23,14 @@ import time
 from typing import List, Optional, Sequence
 
 import numpy as np
-import torch
 
+from rad_tpu_torch.devices import resolve_device
 from rad_tpu_torch.fp.pack import coerce_packed
 from rad_tpu_torch.graph.storage import HNSWGraph, LayerStats, host_keys_view
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["HNSWIndex", "resolve_device"]
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device``, or the first CUDA device if torch sees one, else the
-    CPU — with a warning, since the CPU runs the kernels' plain twins."""
-    if device is not None:
-        return torch.device(device)
-    if torch.cuda.is_available():
-        return torch.device("cuda:0")
-    logger.warning("no CUDA device visible and no device given: running on "
-                   "the CPU with the kernels' plain torch twins")
-    return torch.device("cpu")
 
 
 class HNSWIndex:

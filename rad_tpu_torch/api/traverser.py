@@ -90,7 +90,7 @@ class _DeviceVisitedView:
 
 class RADTraverser:
     """Score-guided traversal of a local graph on ``device`` (``None``:
-    the first CUDA device if torch sees one, else the CPU).
+    the first CUDA device; raises when torch sees none).
 
     Frontier-order caveat (as in the reference): once the frontier
     capacity reaches 2**18 the engine uses the two-level frontier, and
@@ -113,8 +113,6 @@ class RADTraverser:
         head_capacity: int | None | str = "auto",
         device=None,
     ) -> None:
-        from rad_tpu_torch.api.index import resolve_device
-
         if scoring_fn is None:
             raise ValueError("scoring_fn is required")
         if deployment_mode != "local" or engine not in ("auto", "device"):
@@ -135,7 +133,7 @@ class RADTraverser:
             batch_size=batch_size, frontier_capacity=frontier_capacity,
             log_capacity=log_capacity, buffer_capacity=buffer_capacity,
             head_capacity=head_capacity, n_score_threads=n_score_threads,
-            device=resolve_device(device))
+            device=device)
         logger.info("RADTraverser initialized (mode=local engine=device "
                     "device=%s)", self._device_engine.device)
 

@@ -32,6 +32,7 @@ import torch
 
 from rad_tpu_torch.build.device import _dist_rows, _select_neighbors
 from rad_tpu_torch.build.reference import sample_levels
+from rad_tpu_torch.devices import resolve_device
 from rad_tpu_torch.fp.kernels import (decode_bucket_keys, tanimoto_bucketmin,
                                       tanimoto_matrix)
 from rad_tpu_torch.fp.pack import popcount_rows_np
@@ -337,7 +338,7 @@ def build_hnsw_exact(
     probe_width: int | None = None,
     probe_min_n: int = 2_000_000,
     stream_select: bool | str = "auto",
-    device="cpu",
+    device=None,
     stage_times: dict | None = None,
     **unported,
 ) -> HNSWGraph:
@@ -397,6 +398,7 @@ def build_hnsw_exact(
             "graph")
     if stream_select not in ("auto", False):
         raise ValueError(f"stream_select={stream_select!r}")
+    device = resolve_device(device)
     packed = np.ascontiguousarray(packed, dtype=np.uint32)
     n, w = packed.shape
     ndim = ndim or w * 32

@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rad_tpu_torch.devices import resolve_device
 from rad_tpu_torch.fp.kernels import tanimoto_matrix
 from rad_tpu_torch.fp.pack import popcount, popcount_rows
 
@@ -176,7 +177,7 @@ def _min_linkage(qreps: np.ndarray, reps: np.ndarray, device) -> np.ndarray:
 
 def cluster_probes(packed: np.ndarray, perm: np.ndarray, csize: int,
                    probes: int, sample: int = 16, seed: int = 0,
-                   device="cpu") -> np.ndarray:
+                   device=None) -> np.ndarray:
     """Per-cluster probe lists over a :func:`bisect_clusters` partition.
 
     Returns [C, probes] int32: cluster ``c``'s probe targets, ascending
@@ -188,7 +189,7 @@ def cluster_probes(packed: np.ndarray, perm: np.ndarray, csize: int,
     probes = min(probes, c)
     rng = np.random.default_rng(seed)
     reps, empty = _sample_reps(packed, perm, csize, c, sample, rng)
-    dcc = _min_linkage(reps, reps, device)
+    dcc = _min_linkage(reps, reps, resolve_device(device))
     dcc[empty, :] = np.inf
     dcc[:, empty] = np.inf
     np.fill_diagonal(dcc, -1.0)  # self is always the first probe
@@ -209,7 +210,7 @@ def _probe_lists(dmat: np.ndarray, probes: int) -> np.ndarray:
 
 def qblock_probes(packed: np.ndarray, perm: np.ndarray, csize: int,
                   q_block: int, probes: int, sample: int = 16,
-                  seed: int = 0, device="cpu") -> np.ndarray:
+                  seed: int = 0, device=None) -> np.ndarray:
     """Per-QUERY-BLOCK probe lists: each ``q_block``-row scan group picks
     its own ``probes`` nearest clusters by MIN distance from ``sample`` of
     its own members to each cluster's sampled members (same scan cost as
@@ -230,7 +231,7 @@ def qblock_probes(packed: np.ndarray, perm: np.ndarray, csize: int,
         qreps, qempty = reps, empty
     else:
         qreps, qempty = _sample_reps(packed, perm, q_block, nq, sample, rng)
-    dqc = _min_linkage(qreps, reps, device)
+    dqc = _min_linkage(qreps, reps, resolve_device(device))
     dqc[qempty, :] = np.inf
     dqc[:, empty] = np.inf
     own = np.arange(nq) // qpc

@@ -1,8 +1,8 @@
 """Tanimoto kernels over packed fingerprints: CUDA on the card, plain
 torch on the CPU.
 
-Two kernels, both in ``csrc/tanimoto.cu`` (see its header for the design
-and what bounds it on an H100):
+Kernels in ``csrc/tanimoto.cu`` (see its header for the design and what
+bounds it on an H100):
 
 * :func:`tanimoto_matrix` — full ``[Q, N]`` f32 distance block; replaces
   ``rad_tpu.fp.kernels.tanimoto_matrix_pallas``;
@@ -13,12 +13,18 @@ and what bounds it on an H100):
   replaces ``rad_tpu.fp.kernels.tanimoto_bucketmin_pallas``. Output is
   ``[Q, N / bucket]``, the orientation the JAX wrapper returns. With
   ``approx=True`` it runs the kernel's approximate-reciprocal epilogue
-  instance (the reference's ``approx=True``).
+  instance (the reference's ``approx=True``);
+* :func:`tanimoto_nn` — 1-NN per query over the whole db, exact or fast
+  epilogue; replaces ``rad_tpu.fp.kernels.tanimoto_nn_pallas``;
+* :func:`nn_floor` and :func:`nn_epilogue_probe` — the A/B probes of
+  ``benchmarks/bench_kernel_variants.py``, instances of the 1-NN kernel
+  (and one small kernel for the floor probe's ``unpack`` mode).
 
 Each public wrapper runs its ``*_plain`` twin for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises. ``<wrapper>.launches`` counts
 kernel launches (the twin never counts); the approximate epilogue counts in
-``tanimoto_bucketmin.approx_launches``.
+``tanimoto_bucketmin.approx_launches`` and
+``tanimoto_nn.approx_launches``.
 
 Inputs are int32 bit-views of packed uint32 words; popcounts may be passed
 precomputed (int32) to skip recounting.
@@ -40,6 +46,13 @@ __all__ = [
     "tanimoto_bucketmin",
     "tanimoto_bucketmin_plain",
     "decode_bucket_keys",
+    "tanimoto_nn",
+    "tanimoto_nn_plain",
+    "default_n_tile",
+    "nn_floor",
+    "nn_floor_plain",
+    "nn_epilogue_probe",
+    "nn_epilogue_probe_plain",
     "unpack_bitmajor",
     "exact_fp32_matmul",
 ]
@@ -80,15 +93,22 @@ def _pops(packed, pops):
     return popcount_rows(packed) if pops is None else pops
 
 
-def _similarity_plain(q, db, q_pops, db_pops,
-                      approx: bool = False) -> torch.Tensor:
-    """``[Q, N]`` f32 similarity: exact intersections from an fp32 matmul
-    of unpacked bits, then the kernels' epilogue — with ``approx``, the
-    f32 reciprocal of ``max(union, 1)`` times the intersection."""
+def _counts_plain(q, db, q_pops, db_pops):
+    """``[Q, N]`` f32 intersections (exact, from an fp32 matmul of
+    unpacked bits) and unions."""
     with exact_fp32_matmul():
         inter = unpack_bitmajor(q) @ unpack_bitmajor(db).T
     union = (_pops(q, q_pops).to(torch.float32)[:, None]
              + _pops(db, db_pops).to(torch.float32)[None, :]) - inter
+    return inter, union
+
+
+def _similarity_plain(q, db, q_pops, db_pops,
+                      approx: bool = False) -> torch.Tensor:
+    """``[Q, N]`` f32 similarity: exact intersections, then the kernels'
+    epilogue — with ``approx``, the f32 reciprocal of ``max(union, 1)``
+    times the intersection."""
+    inter, union = _counts_plain(q, db, q_pops, db_pops)
     if approx:
         sim = inter * torch.reciprocal(torch.clamp(union, min=1.0))
         return torch.where(union > 0, sim, torch.ones_like(sim))
@@ -222,3 +242,269 @@ def tanimoto_bucketmin(q: torch.Tensor, db: torch.Tensor, bucket: int = 64,
 
 tanimoto_bucketmin.launches = 0
 tanimoto_bucketmin.approx_launches = 0
+
+
+# --- 1-NN over the whole db: tanimoto_nn and the A/B probes ---------------
+# Each epilogue reduces one int64 key per (query, db row) to one per query;
+# the key carries the tie rule (see csrc/tanimoto.cu). The kernel and the
+# twin build the same keys, so their results are array-equal wherever the
+# similarity is computed the same way.
+_NN_EXACT, _NN_FAST, _NN_FLOOR, _NN_EXACT_PK, _NN_NEWTON = range(5)
+_NN_MIN = (_NN_EXACT, _NN_NEWTON)
+_I64 = torch.iinfo(torch.int64)
+_LO32 = 0xFFFFFFFF
+_NN_PLAIN_BLOCK = 1 << 14   # db rows per step of the plain twins' scan
+
+
+def default_n_tile(n: int) -> int:
+    """The TPU wrapper's default: the largest power of two from 128 to
+    2048 that divides ``n`` (128 if none larger does)."""
+    n_tile = 128
+    while n_tile < 2048 and n % (n_tile * 2) == 0:
+        n_tile *= 2
+    return n_tile
+
+
+def _check_nn(q, db, q_pops, db_pops, n_tile: int) -> None:
+    _check_inputs(q, db, q_pops, db_pops)
+    if n_tile <= 0 or n_tile & (n_tile - 1) or db.shape[0] % n_tile:
+        raise ValueError(f"n_tile={n_tile} must be a power of two dividing "
+                         f"the db rows ({db.shape[0]})")
+
+
+def _order32(x: torch.Tensor) -> torch.Tensor:
+    """f32 → int32 with the same order (negative floats flipped)."""
+    b = x.view(torch.int32)
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+
+
+def _hi_lo(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    return hi.to(torch.int64) * (1 << 32) + lo
+
+
+def _nn_block_keys(inter, union, cols, epilogue: int, n_tile: int):
+    """``[Q, B]`` int64 keys of one db block (``cols`` its int64 row ids),
+    the kernel's ``nn_value`` in torch."""
+    if epilogue == _NN_FLOOR:
+        return inter.to(torch.int64)
+    if epilogue == _NN_NEWTON:
+        u = torch.clamp(union, min=1.0)
+        r = torch.reciprocal(u)
+        r = r * (2.0 - u * r)
+        sim = torch.where(union > 0, inter * r, torch.ones_like(inter))
+    elif epilogue == _NN_FAST:
+        sim = inter * torch.reciprocal(torch.clamp(union, min=1.0))
+        sim = torch.where(union > 0, sim, torch.ones_like(sim))
+    else:
+        sim = similarity_from_counts(inter, union)
+    if epilogue in _NN_MIN:
+        return _hi_lo(_order32(1.0 - sim), cols)
+    low = n_tile - 1
+    key = (sim.view(torch.int32) & ~low) | (cols & low).to(torch.int32)
+    if epilogue == _NN_EXACT_PK:
+        return key.to(torch.int64)
+    return _hi_lo(key, _LO32 - cols // n_tile)
+
+
+def _nn_keys_plain(q, db, q_pops, db_pops, epilogue: int, n_tile: int,
+                   block: int = _NN_PLAIN_BLOCK) -> torch.Tensor:
+    """Plain-torch twin of the kernel: ``[Q]`` int64 keys, the db scanned
+    ``block`` rows at a time (memory stays ``O(Q * block)``)."""
+    qp = _pops(q, q_pops)
+    dp = _pops(db, db_pops)
+    is_min = epilogue in _NN_MIN
+    best = torch.full((q.shape[0],), _I64.max if is_min else _I64.min,
+                      dtype=torch.int64, device=q.device)
+    for lo in range(0, db.shape[0], block):
+        hi = min(lo + block, db.shape[0])
+        inter, union = _counts_plain(q, db[lo:hi], qp, dp[lo:hi])
+        cols = torch.arange(lo, hi, dtype=torch.int64, device=q.device)
+        keys = _nn_block_keys(inter, union, cols, epilogue, n_tile)
+        best = (torch.minimum(best, keys.amin(dim=1)) if is_min
+                else torch.maximum(best, keys.amax(dim=1)))
+    return best
+
+
+def _nn_keys(q, db, q_pops, db_pops, epilogue: int, n_tile: int,
+             plain: bool, wrapper, counter: str = "launches") -> torch.Tensor:
+    """``[Q]`` int64 keys: the twin when ``plain`` or for CPU tensors,
+    else the kernel, counted in ``wrapper.<counter>``."""
+    if plain or q.device.type == "cpu":
+        return _nn_keys_plain(q, db, q_pops, db_pops, epilogue, n_tile)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    out = torch.full((q.shape[0],),
+                     _I64.max if epilogue in _NN_MIN else _I64.min,
+                     dtype=torch.int64, device=q.device)
+    _launch("rad_tanimoto_nn", q, db, q_pops, db_pops, epilogue,
+            n_tile.bit_length() - 1, out=out)
+    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+    return out
+
+
+def _decode_min(keys: torch.Tensor):
+    """Exact/Newton keys → ``(dist f32, id int32)``."""
+    hi = (keys >> 32).to(torch.int32)
+    bits = torch.where(hi < 0, hi ^ 0x7FFFFFFF, hi)
+    return bits.view(torch.float32), (keys & _LO32).to(torch.int32)
+
+
+def _decode_fast(keys: torch.Tensor, n_tile: int):
+    """Fast keys → ``(dist, id)`` as ``rad_tpu/fp/kernels.py:422-426``:
+    the truncated similarity and ``tile * n_tile + index``."""
+    key = (keys >> 32).to(torch.int32)
+    tile = _LO32 - (keys & _LO32)
+    sim = (key & ~(n_tile - 1)).view(torch.float32)
+    ids = tile * n_tile + (key & (n_tile - 1)).to(torch.int64)
+    return 1.0 - sim, ids.to(torch.int32)
+
+
+def _tanimoto_nn(q, db, n_tile, q_pops, db_pops, approx, plain: bool):
+    n_tile = default_n_tile(db.shape[0]) if n_tile is None else n_tile
+    _check_nn(q, db, q_pops, db_pops, n_tile)
+    epilogue = _NN_FAST if approx else _NN_EXACT
+    keys = _nn_keys(q, db, q_pops, db_pops, epilogue, n_tile, plain,
+                    tanimoto_nn, "approx_launches" if approx else "launches")
+    return _decode_fast(keys, n_tile) if approx else _decode_min(keys)
+
+
+def tanimoto_nn(q: torch.Tensor, db: torch.Tensor, q_tile: int | None = None,
+                n_tile: int | None = None,
+                q_pops: torch.Tensor | None = None,
+                db_pops: torch.Tensor | None = None, approx: bool = False,
+                compute_dtype=None):
+    """1-NN by Tanimoto: ``(min_dist f32 [Q], argmin_id int32 [Q])``;
+    replaces ``rad_tpu.fp.kernels.tanimoto_nn_pallas``.
+
+    Exact (default): the f32 distance of the matrix kernel, ties to the
+    first id. ``approx=True`` is the throughput epilogue: approximate
+    reciprocal, the similarity's bits with the low ``log2(n_tile)`` bits
+    replaced by the index in its ``n_tile``-row tile, one max; ties in a
+    tile go to the larger id, across tiles to the earlier tile, and the
+    distance is the truncated one. ``n_tile`` (default
+    :func:`default_n_tile`) must be a power of two dividing N; it changes
+    the fast epilogue's result. ``q_tile`` and ``compute_dtype`` are the
+    TPU kernel's tiling and MXU operand type: accepted, and they change no
+    result. Counts ``tanimoto_nn.launches`` / ``.approx_launches``."""
+    return _tanimoto_nn(q, db, n_tile, q_pops, db_pops, approx, plain=False)
+
+
+tanimoto_nn.launches = 0
+tanimoto_nn.approx_launches = 0
+
+
+def tanimoto_nn_plain(q: torch.Tensor, db: torch.Tensor,
+                      q_tile: int | None = None, n_tile: int | None = None,
+                      q_pops: torch.Tensor | None = None,
+                      db_pops: torch.Tensor | None = None,
+                      approx: bool = False, compute_dtype=None):
+    """Plain-torch twin of :func:`tanimoto_nn` (the fast epilogue with the
+    f32 ``torch.reciprocal``), scanning N in blocks of 16,384 rows."""
+    return _tanimoto_nn(q, db, n_tile, q_pops, db_pops, approx, plain=True)
+
+
+def _check_probe(q, db, q_tile: int, n_tile: int) -> None:
+    _check_nn(q, db, None, None, n_tile)
+    if q_tile <= 0 or q.shape[0] % q_tile:
+        raise ValueError(f"q_tile={q_tile} must divide the query rows "
+                         f"({q.shape[0]})")
+
+
+def _unpack_probe_plain(db: torch.Tensor, n_q: int, q_tile: int,
+                        n_tile: int) -> torch.Tensor:
+    first = db.reshape(-1, n_tile, db.shape[1])[:, :min(8, n_tile)]
+    counts = unpack_bitmajor(first, torch.int32).sum(
+        dim=1, dtype=torch.int32)                           # [tiles, d]
+    return counts[:, :q_tile].amax(dim=0).repeat(n_q // q_tile)
+
+
+def _floor(q, db, q_tile, n_tile, mode, plain: bool) -> torch.Tensor:
+    _check_probe(q, db, q_tile, n_tile)
+    if mode == "unpack":
+        if q_tile > 32 * db.shape[1]:
+            raise ValueError(f"q_tile={q_tile} exceeds the {32 * db.shape[1]}"
+                             f" unpacked features")
+        if plain or q.device.type == "cpu":
+            return _unpack_probe_plain(db, q.shape[0], q_tile, n_tile)
+        if q.device.type != "cuda":
+            raise ValueError(f"unsupported device {q.device}")
+        from rad_tpu_torch import _cuda
+
+        out = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
+        lib = _cuda.load_library()
+        with torch.cuda.device(q.device):
+            db = db.contiguous()
+            code = lib.rad_nn_unpack_probe(
+                ctypes.c_void_p(db.data_ptr()), db.shape[0], db.shape[1],
+                n_tile, q_tile, q.shape[0], ctypes.c_void_p(out.data_ptr()),
+                ctypes.c_void_p(
+                    torch.cuda.current_stream(q.device).cuda_stream))
+        _cuda.check(code, "rad_nn_unpack_probe")
+        nn_floor.launches += 1
+        return out
+    if mode != "floor":
+        raise ValueError(f"mode={mode!r}: 'floor' or 'unpack'")
+    # the floor reads no popcounts: zeros stand in, so none are counted
+    pops = [torch.zeros(t.shape[0], dtype=torch.int32, device=t.device)
+            for t in (q, db)]
+    return _nn_keys(q, db, *pops, _NN_FLOOR, n_tile, plain,
+                    nn_floor).to(torch.int32)
+
+
+def nn_floor(q: torch.Tensor, db: torch.Tensor, q_tile: int, n_tile: int,
+             mode: str = "floor") -> torch.Tensor:
+    """The floor probe of ``benchmarks/bench_kernel_variants.py``
+    (``make_floor_kernel``), ``int32 [Q]``.
+
+    ``mode="floor"``: each query's max intersection over the db — what
+    the TPU's ``floor``, ``floor-t`` and ``dot`` modes (and their bf16
+    forms) all compute; they differ only in VMEM layout and MXU operand.
+    ``mode="unpack"``: the TPU unpack stage's checksum (see
+    ``csrc/tanimoto.cu``), which reads the db only. Q % q_tile == 0 and
+    N % n_tile == 0. Counts both kernels in ``nn_floor.launches``."""
+    return _floor(q, db, q_tile, n_tile, mode, plain=False)
+
+
+nn_floor.launches = 0
+
+
+def nn_floor_plain(q: torch.Tensor, db: torch.Tensor, q_tile: int,
+                   n_tile: int, mode: str = "floor") -> torch.Tensor:
+    """Plain-torch twin of :func:`nn_floor`."""
+    return _floor(q, db, q_tile, n_tile, mode, plain=True)
+
+
+def _epilogue_probe(q, db, n_tile, mode, q_pops, db_pops, plain: bool):
+    epilogue = {"exact-pk": _NN_EXACT_PK, "newton": _NN_NEWTON}.get(mode)
+    if epilogue is None:
+        raise ValueError(f"mode={mode!r}: 'exact-pk' or 'newton'")
+    _check_nn(q, db, q_pops, db_pops, n_tile)
+    keys = _nn_keys(q, db, q_pops, db_pops, epilogue, n_tile, plain,
+                    nn_epilogue_probe)
+    return keys.to(torch.int32) if mode == "exact-pk" else _decode_min(
+        keys)[0]
+
+
+def nn_epilogue_probe(q: torch.Tensor, db: torch.Tensor, n_tile: int,
+                      mode: str, q_pops: torch.Tensor | None = None,
+                      db_pops: torch.Tensor | None = None) -> torch.Tensor:
+    """The epilogue probes of ``benchmarks/bench_kernel_variants.py``
+    (``make_epilogue_probe``), per query: ``"exact-pk"`` — the exact
+    divide with the fast epilogue's packed-key max, ``int32 [Q]`` keys;
+    ``"newton"`` — the approximate reciprocal refined by one Newton step,
+    then min, ``f32 [Q]`` distances. Counts
+    ``nn_epilogue_probe.launches``."""
+    return _epilogue_probe(q, db, n_tile, mode, q_pops, db_pops,
+                           plain=False)
+
+
+nn_epilogue_probe.launches = 0
+
+
+def nn_epilogue_probe_plain(q: torch.Tensor, db: torch.Tensor, n_tile: int,
+                            mode: str, q_pops: torch.Tensor | None = None,
+                            db_pops: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """Plain-torch twin of :func:`nn_epilogue_probe` (the Newton step
+    starts from the f32 ``torch.reciprocal``)."""
+    return _epilogue_probe(q, db, n_tile, mode, q_pops, db_pops, plain=True)

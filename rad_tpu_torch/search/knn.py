@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rad_tpu_torch.devices import resolve_device
 from rad_tpu_torch.fp.pack import popcount, popcount_rows
 from rad_tpu_torch.fp.tanimoto import similarity_from_counts
 from rad_tpu_torch.graph.storage import HNSWGraph
@@ -186,7 +187,7 @@ def search_device(
     prefix_filter: int | None = None,
     prefix_keep: int | None = None,
     packed_adjacency: bool | int = False,
-    device="cpu",
+    device=None,
 ):
     """Search a built graph on ``device``: ``(dists [B, k], node_ids [B,
     k])`` torch tensors, ascending, +inf/−1 padded.
@@ -205,6 +206,7 @@ def search_device(
         raise NotImplementedError(
             "packed_adjacency: the bit-packed adjacency is not ported "
             "(ROADMAP Queue 1 item 4)")
+    device = resolve_device(device)
     dg, packed, pops = _prep(graph, device)
     queries = np.atleast_2d(np.asarray(queries, np.uint32))
     q_all = torch.from_numpy(np.ascontiguousarray(queries).view(

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from rad_tpu_torch.devices import resolve_device
+
 __all__ = [
     "DENSE_VISITED_BUDGET",
     "visited_capacity_for",
@@ -62,12 +64,13 @@ def visited_capacity_for(ef: int, m0: int, n: int | None = None) -> int:
 
 
 def hashset_init(capacity: int, batch: int | None = None,
-                 device="cpu") -> torch.Tensor:
+                 device=None) -> torch.Tensor:
     """Empty table of -1: ``[H + 1]`` int32, or ``[batch, H + 1]`` (the
     last slot is the sentinel). ``capacity`` must be a power of 2."""
     assert capacity & (capacity - 1) == 0, "capacity must be a power of two"
     shape = (capacity + 1,) if batch is None else (batch, capacity + 1)
-    return torch.full(shape, -1, dtype=torch.int32, device=device)
+    return torch.full(shape, -1, dtype=torch.int32,
+                      device=resolve_device(device))
 
 
 def hashset_check_insert_batch(tables: torch.Tensor, ids: torch.Tensor,

@@ -40,6 +40,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from rad_tpu_torch.devices import resolve_device
 from rad_tpu_torch.fp.tanimoto import tanimoto_rows_to_target
 from rad_tpu_torch.graph.storage import HNSWGraph
 from rad_tpu_torch.traverse import candidate_ops
@@ -819,7 +820,7 @@ def save_state_atomic(state: TraversalState, path: str) -> None:
     os.replace(tmp, path)
 
 
-def load_state(path: str, device="cpu") -> TraversalState:
+def load_state(path: str, device=None) -> TraversalState:
     """Restore a checkpoint written by :func:`save_state` or by
     ``rad_tpu``'s ``save_state`` (including its pre-``f_live`` and
     single-level forms) onto ``device``, adding the sentinel slots."""
@@ -839,6 +840,7 @@ def load_state(path: str, device="cpu") -> TraversalState:
         arrays["cold_row"] = np.zeros((0,), np.int32)
         arrays["cold_n"] = np.asarray(0, np.int32)
         arrays["watermark"] = np.asarray(INF, np.float32)
+    device = resolve_device(device)
     tensors = {}
     for k in names:
         a = arrays[k]

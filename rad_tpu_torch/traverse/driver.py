@@ -20,6 +20,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from rad_tpu_torch.devices import resolve_device
 from rad_tpu_torch.graph.storage import HNSWGraph
 from rad_tpu_torch.store.smiles_store import SmilesStore
 from rad_tpu_torch.traverse import device as dev
@@ -49,7 +50,7 @@ class DeviceTraverser:
         failed_score: float = float("inf"),
         order_log_spill: bool | str = False,
         packed_adjacency: bool = False,
-        device="cpu",
+        device=None,
     ) -> None:
         if order_log_spill or packed_adjacency:
             raise NotImplementedError(
@@ -57,7 +58,7 @@ class DeviceTraverser:
                 "(ROADMAP Queue 1 items 4 and 10)")
         self.graph = graph
         self.batch_size = batch_size
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dg = dev.prepare_device_graph(graph, self.device)
         self.state = dev.init_state(self.dg, frontier_capacity, log_capacity,
                                     buffer_capacity, head_capacity)

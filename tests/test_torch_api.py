@@ -38,13 +38,14 @@ def library(tmp_path_factory):
 
 def _quickstart(pkg, store_cls, library, tmp_path, **build_kw):
     keys, fps, db, table = library
+    on_cpu = {"device": "cpu"} if pkg is rad_tpu_torch else {}
     index = pkg.HNSWIndex(ndim=1024, dtype="b1", metric="tanimoto",
-                          connectivity=16, expansion_add=400)
+                          connectivity=16, expansion_add=400, **on_cpu)
     index.add(keys, fps)
     index.build(**build_kw)
     path = str(tmp_path / f"{pkg.__name__}.npz")
     index.save(path)
-    loaded = pkg.HNSWIndex.load(path)
+    loaded = pkg.HNSWIndex.load(path, **on_cpu)
     store = store_cls(db)
     t = pkg.create_local_traverser(loaded, table.__getitem__,
                                    smiles_store=store, n_score_threads=1,
@@ -74,7 +75,7 @@ def test_quickstart_same_best_molecules(library, tmp_path):
 def test_search_exact_matches_reference(library):
     keys, fps, _, _ = library
     ref = rad_tpu.HNSWIndex(ndim=1024, connectivity=8)
-    port = rad_tpu_torch.HNSWIndex(ndim=1024, connectivity=8)
+    port = rad_tpu_torch.HNSWIndex(ndim=1024, connectivity=8, device="cpu")
     for idx in (ref, port):
         idx.add(keys, fps)
     ref.build(backend="exact")
@@ -86,12 +87,12 @@ def test_search_exact_matches_reference(library):
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         port.search(fps[:5], k=10, backend="native")
     with pytest.raises(NotImplementedError):
-        rad_tpu_torch.HNSWIndex().build(backend="native")
+        rad_tpu_torch.HNSWIndex(device="cpu").build(backend="native")
 
 
 def test_traverser_views(library):
     keys, fps, _, table = library
-    index = rad_tpu_torch.HNSWIndex(ndim=1024, connectivity=8)
+    index = rad_tpu_torch.HNSWIndex(ndim=1024, connectivity=8, device="cpu")
     index.add(keys, fps)
     t = rad_tpu_torch.create_local_traverser(
         index, lambda s: table[f"SMILES_{s}"], n_score_threads=2,
@@ -117,20 +118,36 @@ def test_traverser_views(library):
         t.prime()
 
 
-def test_resolve_device_says_when_it_picks_the_cpu(caplog, monkeypatch):
+def test_resolve_device_says_when_it_picks_the_cpu(monkeypatch):
+    """The CPU runs only when named; with no card and no device the call
+    raises and says how to ask for the CPU."""
     import torch
     from rad_tpu_torch.api.index import resolve_device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with caplog.at_level("WARNING", logger="rad_tpu_torch.api.index"):
-        assert resolve_device("cpu").type == "cpu"
-        assert not caplog.records
-        assert resolve_device(None).type == "cpu"
-    assert "plain torch twins" in caplog.text
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        resolve_device(None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda:0")
+
+
+def test_entry_points_default_to_the_card(library, monkeypatch):
+    """With no card visible, the entry points given no device raise
+    instead of running on the CPU."""
+    import torch
+    from rad_tpu_torch.build.exact import build_hnsw_exact
+    _, fps, _, _ = library
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rad_tpu_torch.HNSWIndex()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_hnsw_exact(fps[:64])
 
 
 def test_port_never_loads_jax():
-    """A fresh interpreter runs a tiny quick start on the port and must
-    not have imported jax or rad_tpu."""
+    """A fresh interpreter runs a tiny quick start on the port and imports
+    its benchmark entry points, and must not have imported jax, rad_tpu or
+    the repo's benchmarks."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -149,8 +166,10 @@ def test_port_never_loads_jax():
         assert len(t.get_best_molecules(5)) == 5
         t.shutdown()
         assert index.search(fps[:3], k=3)[1].shape == (3, 3)
+        import rad_tpu_torch.bench, rad_tpu_torch.bench_kernel_variants
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "rad_tpu"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "rad_tpu",
+                                            "bench", "benchmarks"))
         assert not bad, bad
         print("isolated")
     """)

@@ -48,7 +48,7 @@ def test_build_edge_identical(fps, bucket):
     times = {}
     port = build_hnsw_exact(fps, connectivity=8, seed=1,
                             block_bucket=bucket, stage_times=times,
-                            **BLOCKS)
+                            device="cpu", **BLOCKS)
     # layer 0 takes the bucket path (when on), the upper layers the matrix
     assert ref.layer_sizes[0] >= BLOCKS["q_block"]
     assert len(ref.layer_sizes) >= 3
@@ -61,7 +61,8 @@ def test_small_libraries_edge_identical(n):
     f = random_fingerprints(n, n_bits=128, density=0.2, seed=n)
     keys = np.arange(n, dtype=np.int64) * 7 + (1 << 40)
     ref = ref_exact.build_hnsw_exact(f, keys=keys, connectivity=6, seed=2)
-    port = build_hnsw_exact(f, keys=keys, connectivity=6, seed=2)
+    port = build_hnsw_exact(f, keys=keys, connectivity=6, seed=2,
+                            device="cpu")
     _assert_same_graph(ref, port, f"n={n}")
 
 
@@ -100,15 +101,15 @@ def test_symmetrize_matches_three_key_sort():
 
 def test_unported_forms_raise(fps):
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        build_hnsw_exact(fps[:64], stream_select=True)
+        build_hnsw_exact(fps[:64], stream_select=True, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item"):
-        build_hnsw_exact(fps[:64], mesh=object())
+        build_hnsw_exact(fps[:64], mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        build_hnsw_exact(fps[:64], symm_mode="chunked")
+        build_hnsw_exact(fps[:64], symm_mode="chunked", device="cpu")
     with pytest.raises(TypeError):
-        build_hnsw_exact(fps[:64], not_an_option=1)
+        build_hnsw_exact(fps[:64], not_an_option=1, device="cpu")
     with pytest.raises(ValueError):
-        build_hnsw_exact(fps[:64], q_block=300)
+        build_hnsw_exact(fps[:64], q_block=300, device="cpu")
 
 
 @pytest.mark.gpu
@@ -119,7 +120,7 @@ def test_cuda_build_equals_cpu_build(fps):
 
     launches = kernels.tanimoto_bucketmin.launches
     cpu = build_hnsw_exact(fps, connectivity=8, seed=1, block_bucket=16,
-                           **BLOCKS)
+                           device="cpu", **BLOCKS)
     gpu = build_hnsw_exact(fps, connectivity=8, seed=1, block_bucket=16,
                            device="cuda", **BLOCKS)
     _assert_same_graph(cpu, gpu, "cuda vs cpu")

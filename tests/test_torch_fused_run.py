@@ -229,7 +229,7 @@ def _traverser(small, port: bool, **kw):
     if port:
         return DeviceTraverser(port_g, fn, InMemorySmilesStore(smiles),
                                batch_size=4, frontier_capacity=1 << 12,
-                               n_score_threads=1, **kw)
+                               n_score_threads=1, device="cpu", **kw)
     return RefTraverser(ref, fn, RefStore(smiles), batch_size=4,
                         frontier_capacity=1 << 12, n_score_threads=1, **kw)
 
@@ -270,7 +270,8 @@ def test_checkpoint_rejects_wrong_graph(small, tmp_path):
     t.shutdown()
     other = build_hnsw(random_fingerprints(50, n_bits=64, seed=1),
                        connectivity=4, expansion_add=8)
-    t2 = DeviceTraverser(_port_graph(other), small[3], n_score_threads=1)
+    t2 = DeviceTraverser(_port_graph(other), small[3], n_score_threads=1,
+                         device="cpu")
     with pytest.raises(ValueError):
         t2.load_checkpoint(ckpt)
     t2.shutdown()
@@ -290,7 +291,7 @@ def test_checkpoint_roundtrip_any_suffix(small, tmp_path):
     assert torch.equal(t2.state.order_log, t.state.order_log)
     # a bare save_state() output: np.savez appended the suffix
     dev.save_state(t.state, str(tmp_path / "bare"))
-    assert_states_equal(dev.load_state(str(tmp_path / "bare")),
+    assert_states_equal(dev.load_state(str(tmp_path / "bare"), "cpu"),
                         dev.state_to_reference_arrays(t.state))
     for x in (t, t2):
         x.shutdown()
@@ -306,9 +307,9 @@ def test_two_level_checkpoint_roundtrip(case, tmp_path):
     assert st.cold_score.shape[0] == (1 << 12) + 1 and int(st.cold_n) > 0
     p = str(tmp_path / "two_level.npz")
     dev.save_state(st, p)
-    assert_states_equal(dev.load_state(p), ref_dev.load_state(p))
+    assert_states_equal(dev.load_state(p, "cpu"), ref_dev.load_state(p))
     ref_st = ref_dev.load_state(p)
-    st2 = dev.load_state(p)
+    st2 = dev.load_state(p, "cpu")
     a = dev.fused_run(st, dg, packed, pops, packed[TARGET], pops[TARGET],
                       10 ** 9, batch=8)
     b = dev.fused_run(st2, dg, packed, pops, packed[TARGET], pops[TARGET],
@@ -333,7 +334,7 @@ def test_load_state_reads_older_reference_forms(case, tmp_path, drop):
     arrays = {k: v for k, v in _ref_arrays(st).items() if k not in drop}
     p = str(tmp_path / "old.npz")
     np.savez(p, **arrays)
-    assert_states_equal(dev.load_state(p), ref_dev.load_state(p))
+    assert_states_equal(dev.load_state(p, "cpu"), ref_dev.load_state(p))
 
 
 def test_read_order_log_since(case):

@@ -1,0 +1,226 @@
+"""rad_tpu_torch's 1-NN kernel and its A/B probes against the JAX package.
+
+On the CPU the wrappers run their plain twins. ``tanimoto_nn`` is held to
+``tanimoto_nn_pallas(..., interpret=True)``: array-equal with the exact
+epilogue (the same f32 op order), and within the 2e-3 bounds of
+tests/test_kernels.py with the fast one (the JAX CPU lowering of the
+approximate reciprocal goes through bfloat16; the twin takes the f32
+reciprocal). The floor and epilogue probes are held to
+``benchmarks/bench_kernel_variants.py`` run with ``pallas_call`` patched
+to interpret mode (its kernels take no ``interpret`` argument):
+array-equal, except ``newton`` within 1e-4 (one Newton step refines the
+bfloat16 reciprocal to ~2^-16). The ``gpu`` tests compare each CUDA
+kernel with its twin on the card and skip without one.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax.experimental.pallas
+import jax.numpy as jnp
+
+from benchmarks import bench_kernel_variants as ref_variants
+from rad_tpu.fp import random_fingerprints
+from rad_tpu.fp.kernels import tanimoto_nn_pallas
+from rad_tpu.fp.tanimoto import tanimoto_matrix as ref_matrix
+from rad_tpu_torch import bench_kernel_variants as variants
+from rad_tpu_torch.fp import kernels
+from rad_tpu_torch.fp.pack import to_torch_packed
+
+
+@pytest.fixture(scope="module", params=[256, 1024])
+def data(request):
+    bits = request.param
+    db = random_fingerprints(1024, n_bits=bits, density=0.1, seed=41)
+    q = random_fingerprints(256, n_bits=bits, density=0.1, seed=42)
+    db[9] = q[4]     # an exact match, and a tie across tiles
+    db[700] = q[4]
+    db[300] = db[301] = q[7]   # a tie inside one tile
+    return q, db
+
+
+def _cpu(*arrays):
+    return [to_torch_packed(a, "cpu") for a in arrays]
+
+
+def test_exact_nn_array_equal_to_pallas(data):
+    q, db = data
+    rd, ri = tanimoto_nn_pallas(jnp.asarray(q), jnp.asarray(db), q_tile=128,
+                                n_tile=256, interpret=True)
+    before = kernels.tanimoto_nn.launches
+    d, i = kernels.tanimoto_nn(*_cpu(q, db), n_tile=256)
+    assert kernels.tanimoto_nn.launches == before   # twin: no launch
+    assert d.dtype == torch.float32 and i.dtype == torch.int32
+    np.testing.assert_array_equal(d.numpy(), np.asarray(rd))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+    assert i[4] == 9 and i[7] == 300   # ties go to the first id
+
+
+@pytest.mark.parametrize("n_tile", [256, None])
+def test_fast_nn_within_pallas_bounds(data, n_tile):
+    q, db = data
+    true = np.asarray(ref_matrix(jnp.asarray(q), jnp.asarray(db)))
+    true_min = true.min(axis=1)
+    rows = np.arange(len(q))
+    rd, ri = tanimoto_nn_pallas(jnp.asarray(q), jnp.asarray(db), q_tile=128,
+                                n_tile=n_tile, interpret=True, approx=True)
+    before = kernels.tanimoto_nn.approx_launches
+    d, i = kernels.tanimoto_nn(*_cpu(q, db), n_tile=n_tile, approx=True)
+    assert kernels.tanimoto_nn.approx_launches == before
+    for dd, ii in ((d.numpy(), i.numpy()), (np.asarray(rd), np.asarray(ri))):
+        np.testing.assert_allclose(dd, true_min, atol=2e-3)
+        np.testing.assert_allclose(true[rows, ii], true_min, atol=2e-3)
+    np.testing.assert_allclose(d.numpy(), np.asarray(rd), atol=2e-3)
+    # the packed key's tie rule: the larger index inside its tile wins
+    # (rows 300/301 share a tile; 9 and 700 sit at tile indices 9 and 188
+    # with n_tile 256, 9 and 700 with 1024)
+    assert i[7] == 301 and i[4] == 700
+
+
+def test_self_query_finds_itself():
+    db = random_fingerprints(1024, n_bits=1024, density=0.1, seed=5)
+    tq, tdb = _cpu(db[:256], db)
+    d, i = kernels.tanimoto_nn(tq, tdb)
+    np.testing.assert_array_equal(d.numpy(), 0.0)
+    np.testing.assert_array_equal(i.numpy(), np.arange(256))
+    d, i = kernels.tanimoto_nn(tq, tdb, approx=True)
+    np.testing.assert_allclose(d.numpy(), 0.0, atol=2e-3)
+    np.testing.assert_array_equal(i.numpy(), np.arange(256))
+
+
+def test_nn_arguments():
+    q, db = _cpu(random_fingerprints(64, 256, seed=1),
+                 random_fingerprints(384, 256, seed=2))
+    assert kernels.default_n_tile(384) == 128
+    assert kernels.default_n_tile(1 << 20) == 2048
+    with pytest.raises(ValueError, match="n_tile"):
+        kernels.tanimoto_nn(q, db, n_tile=256)
+    with pytest.raises(ValueError, match="n_tile"):
+        kernels.tanimoto_nn(q, db, n_tile=96)
+    # q_tile and compute_dtype change no result
+    a = kernels.tanimoto_nn(q, db, approx=True)
+    b = kernels.tanimoto_nn(q, db, q_tile=8, compute_dtype=torch.bfloat16,
+                            approx=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    # the twin scans in blocks: any block size gives the same keys
+    keys = kernels._nn_keys_plain(q, db, None, None, kernels._NN_FAST, 128)
+    assert torch.equal(keys, kernels._nn_keys_plain(
+        q, db, None, None, kernels._NN_FAST, 128, block=100))
+
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+    orig = jax.experimental.pallas.pallas_call
+    monkeypatch.setattr(jax.experimental.pallas, "pallas_call",
+                        functools.partial(orig, interpret=True))
+
+
+@pytest.fixture(scope="module")
+def probe_data():
+    db = random_fingerprints(512, n_bits=1024, density=0.1, seed=11)
+    q = random_fingerprints(256, n_bits=1024, density=0.1, seed=12)
+    db[17] = q[3]
+    return q, db
+
+
+@pytest.mark.parametrize("mode", list(variants.FLOOR_MODES[:3]) + ["unpack"])
+def test_floor_probe_array_equal_to_tpu_probe(probe_data, interpret_pallas,
+                                              mode):
+    q, db = probe_data
+    ref = np.asarray(ref_variants.make_floor_kernel(
+        128, 256, jnp.int8, mode=mode)(jnp.asarray(q), jnp.asarray(db)))
+    before = kernels.nn_floor.launches
+    out = variants.make_floor_kernel(128, 256, mode=mode)(*_cpu(q, db))
+    assert kernels.nn_floor.launches == before
+    assert out.shape == (256, 1) and out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("mode", ["exact-pk", "newton"])
+def test_epilogue_probe_matches_tpu_probe(probe_data, interpret_pallas,
+                                          mode):
+    q, db = probe_data
+    ref = np.asarray(ref_variants.make_epilogue_probe(
+        128, 256, jnp.int8, mode=mode)(jnp.asarray(q), jnp.asarray(db)))
+    before = kernels.nn_epilogue_probe.launches
+    out = variants.make_epilogue_probe(128, 256, mode=mode)(*_cpu(q, db))
+    assert kernels.nn_epilogue_probe.launches == before
+    assert out.shape == (256, 1)
+    if mode == "exact-pk":
+        np.testing.assert_array_equal(out.numpy(), ref)
+    else:
+        np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-4)
+        exact = kernels.tanimoto_nn(*_cpu(q, db))[0].numpy()
+        np.testing.assert_allclose(out.numpy()[:, 0], exact, atol=1e-6)
+
+
+def test_probe_arguments(probe_data):
+    q, db = _cpu(*probe_data)
+    with pytest.raises(ValueError, match="q_tile"):
+        variants.make_floor_kernel(96, 256)(q, db)
+    with pytest.raises(ValueError, match="exceeds"):
+        variants.make_floor_kernel(2048, 256, mode="unpack")(
+            torch.cat([q] * 8), db)
+    with pytest.raises(ValueError, match="unknown"):
+        variants.make_floor_kernel(128, 256, mode="floor-x")
+    with pytest.raises(ValueError, match="unknown"):
+        variants.make_epilogue_probe(128, 256, mode="exact")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda:0")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bits,nq,nn", [(1024, 300, 8192), (256, 64, 640),
+                                         (2048, 70, 1152)])
+def test_cuda_nn_kernels_equal_twins(cuda, n_bits, nq, nn):
+    q = random_fingerprints(nq, n_bits=n_bits, density=0.12, seed=1)
+    db = random_fingerprints(nn, n_bits=n_bits, density=0.12, seed=2)
+    db[3] = db[nn - 1] = q[0]
+    tq, tdb = to_torch_packed(q, cuda), to_torch_packed(db, cuda)
+    before = (kernels.tanimoto_nn.launches, kernels.nn_floor.launches,
+              kernels.nn_epilogue_probe.launches)
+    d, i = kernels.tanimoto_nn(tq, tdb, n_tile=128)
+    torch.cuda.synchronize()
+    pd, pi = kernels.tanimoto_nn_plain(tq, tdb, n_tile=128)
+    assert torch.equal(d, pd) and torch.equal(i, pi)
+    assert int(i[0]) == 3
+    assert torch.equal(kernels.nn_floor(tq, tdb, 1, 128),
+                       kernels.nn_floor_plain(tq, tdb, 1, 128))
+    assert torch.equal(kernels.nn_floor(tq, tdb, 1, 128, mode="unpack"),
+                       kernels.nn_floor_plain(tq, tdb, 1, 128, mode="unpack"))
+    for n_tile in (64, 128):
+        assert torch.equal(
+            kernels.nn_epilogue_probe(tq, tdb, n_tile, "exact-pk"),
+            kernels.nn_epilogue_probe_plain(tq, tdb, n_tile, "exact-pk"))
+    got = kernels.nn_epilogue_probe(tq, tdb, 128, "newton")
+    want = kernels.nn_epilogue_probe_plain(tq, tdb, 128, "newton")
+    assert float((got - want).abs().max()) <= 1e-6
+    assert (kernels.tanimoto_nn.launches, kernels.nn_floor.launches,
+            kernels.nn_epilogue_probe.launches) == (
+        before[0] + 1, before[1] + 2, before[2] + 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tile", [128, 1024])
+def test_cuda_fast_nn_within_twin_bounds(cuda, n_tile):
+    q = random_fingerprints(512, n_bits=1024, density=0.1, seed=3)
+    db = random_fingerprints(8192, n_bits=1024, density=0.1, seed=4)
+    db[5] = q[1]
+    tq, tdb = to_torch_packed(q, cuda), to_torch_packed(db, cuda)
+    before = kernels.tanimoto_nn.approx_launches
+    d, i = kernels.tanimoto_nn(tq, tdb, n_tile=n_tile, approx=True)
+    torch.cuda.synchronize()
+    assert kernels.tanimoto_nn.approx_launches == before + 1
+    pd, _ = kernels.tanimoto_nn_plain(tq, tdb, n_tile=n_tile, approx=True)
+    assert float((d - pd).abs().max()) <= 2.0 ** -12
+    true = kernels.tanimoto_matrix_plain(tq, tdb)
+    chosen = true.gather(1, i.long()[:, None])[:, 0]
+    assert float((chosen - true.amin(dim=1)).abs().max()) <= 2.0 ** -12

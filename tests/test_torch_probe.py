@@ -65,13 +65,14 @@ def test_probe_tables_array_equal(fps, use_pallas):
     perm = probe.bisect_clusters(fps, 256, seed=2)
     kw = dict(use_pallas=use_pallas, interpret=use_pallas)
     np.testing.assert_array_equal(
-        probe.cluster_probes(fps, perm, 256, probes=5, sample=8, seed=7),
+        probe.cluster_probes(fps, perm, 256, probes=5, sample=8, seed=7,
+                             device="cpu"),
         ref_probe.cluster_probes(fps, perm, 256, probes=5, sample=8,
                                  seed=7, **kw))
     for q_block, sample in ((128, 8), (256, 4), (64, 16)):
         np.testing.assert_array_equal(
             probe.qblock_probes(fps, perm, 256, q_block, probes=5,
-                                sample=sample, seed=9),
+                                sample=sample, seed=9, device="cpu"),
             ref_probe.qblock_probes(fps, perm, 256, q_block, probes=5,
                                     sample=sample, seed=9, **kw),
             err_msg=f"q_block={q_block}")
@@ -106,7 +107,7 @@ def test_probed_build_edge_identical(fps, gran, bucket, width):
     times = {}
     port = build_hnsw_exact(fps, block_bucket=bucket, probes=6,
                             probe_granularity=gran, probe_width=width,
-                            stage_times=times, **PROBED)
+                            stage_times=times, device="cpu", **PROBED)
     _assert_same_graph(ref, port, f"{gran}/{bucket}/{width}")
     assert set(times) == {"candidates", "selection", "symmetrization",
                           "bisection", "probe_tables", "probed_layers"}
@@ -158,14 +159,15 @@ def test_all_layers_gated_warns_and_builds_exact(fps, caplog):
     """probes= whose every layer stays exact (the default probe_min_n of
     2M, or too few clusters) warns and gives the exact build."""
     kw = dict(connectivity=8, seed=3, q_block=128, col_block=128)
+    on_cpu = dict(kw, device="cpu")
     with caplog.at_level(logging.WARNING, logger="rad_tpu_torch.build.exact"):
         times = {}
         gated = build_hnsw_exact(fps, probes=6, probe_csize=128,
-                                 stage_times=times, **kw)
+                                 stage_times=times, **on_cpu)
         assert "NO layer used the probed candidate stage" in caplog.text
         assert times["probed_layers"] == []
         caplog.clear()
-        few = build_hnsw_exact(fps, probes=64, probe_min_n=0, **kw)
+        few = build_hnsw_exact(fps, probes=64, probe_min_n=0, **on_cpu)
         assert "NO layer used" in caplog.text
     ref = ref_exact.build_hnsw_exact(fps, use_pallas=True, interpret=True,
                                      **kw)
@@ -183,9 +185,10 @@ def test_bucket_approx_build_agrees_with_exact():
     fps = make_library(3000, 256, seed=11)[0]
     for kw in (dict(PROBED, probes=6), dict(connectivity=8, seed=3,
                                             q_block=128, col_block=128)):
-        ex = build_hnsw_exact(fps, block_bucket=16, **kw)
+        ex = build_hnsw_exact(fps, block_bucket=16, device="cpu", **kw)
         ap = build_hnsw_exact(fps, block_bucket=16, bucket_approx=True,
-                              bucket_q_tile=64, bucket_n_tile=256, **kw)
+                              bucket_q_tile=64, bucket_n_tile=256,
+                              device="cpu", **kw)
         same = float(np.mean(ex.neighbors[0] == ap.neighbors[0]))
         assert same >= 0.99, (kw, same)
         assert ex.layer_sizes == ap.layer_sizes
@@ -201,7 +204,8 @@ def test_probed_stage_validation(fps):
         exact._allpairs_topk_probed(packed_l, pops, 1024, 300, 128, 256,
                                     None, 2, 4, 0, fps[:1024])
     with pytest.raises(ValueError, match="probe_granularity"):
-        build_hnsw_exact(fps, probes=6, probe_granularity="row", **PROBED)
+        build_hnsw_exact(fps, probes=6, probe_granularity="row",
+                         device="cpu", **PROBED)
 
 
 @pytest.mark.gpu
@@ -214,7 +218,7 @@ def test_cuda_probed_build_equals_cpu_build(fps):
                 kernels.tanimoto_matrix.launches)
     for gran in ("qblock", "cluster"):
         kw = dict(PROBED, probes=6, block_bucket=64, probe_granularity=gran)
-        cpu = build_hnsw_exact(fps, **kw)
+        cpu = build_hnsw_exact(fps, device="cpu", **kw)
         gpu = build_hnsw_exact(fps, device="cuda", **kw)
         for l, (a, b) in enumerate(zip(cpu.neighbors, gpu.neighbors)):
             np.testing.assert_array_equal(a, b, err_msg=f"{gran} layer {l}")

@@ -37,7 +37,7 @@ def graphs():
     from enrichment_example import make_library
     fps = make_library(3000, 256, seed=5)[0]
     ref = ref_build(fps, connectivity=8, seed=1)
-    port = build_hnsw_exact(fps, connectivity=8, seed=1)
+    port = build_hnsw_exact(fps, connectivity=8, seed=1, device="cpu")
     for a, b in zip(ref.neighbors, port.neighbors):
         np.testing.assert_array_equal(np.asarray(a), b)
     assert port.max_level >= 2
@@ -57,7 +57,8 @@ def test_search_device_array_equal(graphs, monkeypatch, ef, hashed):
         monkeypatch.setattr(ref_visited, "DENSE_VISITED_BUDGET", 0)
         monkeypatch.setattr(visited, "DENSE_VISITED_BUDGET", 0)
     rd, ri = ref_knn.search_device(ref, queries, k=10, expansion_search=ef)
-    d, i = knn.search_device(port, queries, k=10, expansion_search=ef)
+    d, i = knn.search_device(port, queries, k=10, expansion_search=ef,
+                             device="cpu")
     assert d.shape == (len(queries), 10) and i.dtype == torch.int32
     np.testing.assert_array_equal(d.numpy(), np.asarray(rd))
     np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
@@ -74,7 +75,7 @@ def test_search_single_layer_and_chunks(graphs):
     assert port0.max_level == 0
     kw = dict(k=5, expansion_search=32, chunk_size=96, visited_capacity=1024)
     rd, ri = ref_knn.search_device(ref0, queries, **kw)
-    d, i = knn.search_device(port0, queries, **kw)
+    d, i = knn.search_device(port0, queries, device="cpu", **kw)
     np.testing.assert_array_equal(d.numpy(), np.asarray(rd))
     np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
 
@@ -97,7 +98,8 @@ def test_index_search_matches_reference(graphs):
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         port.search(queries, prefix_filter=128)
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        knn.search_device(port.graph, queries, packed_adjacency=True)
+        knn.search_device(port.graph, queries, packed_adjacency=True,
+                          device="cpu")
 
 
 @pytest.mark.parametrize("cap,probes", [(16, 4), (64, 4), (64, 2)])
@@ -107,7 +109,7 @@ def test_hashset_array_equal_after_colliding_inserts(cap, probes):
     (fail open) — table and ``seen`` equal to the reference's."""
     rng = np.random.default_rng(cap + probes)
     ref_t = ref_visited.hashset_init(cap)
-    t = visited.hashset_init(cap)
+    t = visited.hashset_init(cap, device="cpu")
     assert t.shape == (cap + 1,)
     for _ in range(6):
         ids = rng.integers(0, 5 * cap, size=24).astype(np.int32)
@@ -126,7 +128,7 @@ def test_hashset_array_equal_after_colliding_inserts(cap, probes):
         jnp.full((3, cap), -1, jnp.int32), jnp.asarray(ids),
         jnp.asarray(valid), probes=probes)
     tb, sb = visited.hashset_check_insert_batch(
-        visited.hashset_init(cap, batch=3), torch.from_numpy(ids),
+        visited.hashset_init(cap, batch=3, device="cpu"), torch.from_numpy(ids),
         torch.from_numpy(valid), probes=probes)
     np.testing.assert_array_equal(tb[:, :-1].numpy(), np.asarray(rb))
     np.testing.assert_array_equal(sb.numpy(), np.asarray(rs))
@@ -153,7 +155,7 @@ def test_cuda_search_equals_cpu_search(graphs, monkeypatch):
         monkeypatch.setattr(visited, "DENSE_VISITED_BUDGET", budget)
         for ef in (16, 64):
             d, i = knn.search_device(port, queries, k=10,
-                                     expansion_search=ef)
+                                     expansion_search=ef, device="cpu")
             dg, ig = knn.search_device(port, queries, k=10,
                                        expansion_search=ef, device="cuda")
             assert torch.equal(dg.cpu(), d) and torch.equal(ig.cpu(), i)

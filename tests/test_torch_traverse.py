@@ -45,7 +45,7 @@ def _run_both(graphs, batch, n_to_score, pipeline_depth=1, **kw):
     a = RefTraverser(ref_g, _score, batch_size=batch, n_score_threads=1,
                      **kw)
     b = DeviceTraverser(port_g, _score, batch_size=batch,
-                        n_score_threads=1, **kw)
+                        n_score_threads=1, device="cpu", **kw)
     for t in (a, b):
         t.prime()
         t.traverse(n_to_score=n_to_score, pipeline_depth=pipeline_depth)
@@ -175,9 +175,9 @@ def test_first_occurrence_forms_agree():
 def test_unported_options_raise(graphs):
     _, g = graphs
     with pytest.raises(NotImplementedError):
-        DeviceTraverser(g, _score, packed_adjacency=True)
+        DeviceTraverser(g, _score, packed_adjacency=True, device="cpu")
     with pytest.raises(NotImplementedError):
-        DeviceTraverser(g, _score, order_log_spill=True)
+        DeviceTraverser(g, _score, order_log_spill=True, device="cpu")
 
 
 def test_periodic_checkpoint_restores_n_scored(graphs, tmp_path):
@@ -186,12 +186,14 @@ def test_periodic_checkpoint_restores_n_scored(graphs, tmp_path):
     and the resumed run ends where an uninterrupted one does."""
     _, g = graphs
     ckpt = tmp_path / "auto.npz"
-    t = DeviceTraverser(g, _score, batch_size=8, n_score_threads=1)
+    t = DeviceTraverser(g, _score, batch_size=8, n_score_threads=1,
+                        device="cpu")
     t.prime()
     t.traverse(n_to_score=200, checkpoint_path=str(ckpt),
                checkpoint_interval=3)
     assert ckpt.exists()
-    t2 = DeviceTraverser(g, _score, batch_size=8, n_score_threads=1)
+    t2 = DeviceTraverser(g, _score, batch_size=8, n_score_threads=1,
+                        device="cpu")
     t2.load_checkpoint(str(ckpt))
     assert t2.n_scored == t.n_scored >= 200
     assert t2.get_molecules() == t.get_molecules()
