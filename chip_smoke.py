@@ -55,7 +55,25 @@ Phases, one status line each (plus detail lines):
    (newton within 1e-6); each kernel timed against its twin; then the
    entry points with launch counters: (d) ``rad_tpu_torch.bench.main``
    with its defaults, (e) ``rad_tpu_torch.bench_kernel_variants.main``
-   over every kernel's variants.
+   over every kernel's variants;
+8. the engine variants at full width on phase 4's graph: (a)
+   ``rad_tpu_torch.bench_scalar_probe.main`` with its defaults (the three
+   scalar-loop probes at 8,192 candidates over 2^20 rows, with launch
+   counters); (b) the receptor-panel sweep ``fused_run_multi_tables`` with
+   43 score tables (the recipe of ``examples/panel_screening.py``), 1 %
+   scored per campaign at batch 8: campaigns 0, 21 and 42 equal to solo
+   ``make_device_run`` runs (scored set, scores, order, drops), again
+   with unequal budgets so campaigns freeze; aggregate scored/s, ms,
+   launches and synchronisations per step at 1, 8 and 43 campaigns; (c)
+   ``fused_run_multi`` with 8 Tanimoto targets at batch 64, campaign 0
+   equal to 5a's solo run; (d) ``RADTraverser(order_log_spill=<file>)``
+   with a 1,024-id device ring: the spilled order equals phase 4's; (e)
+   ``make_device_run`` over the bit-packed adjacency (20-bit fields): the
+   order of 5c.
+
+Phase 2 also holds the three probes to their twins (8,192 candidates over
+2^20 rows: the benchmark's inputs, a case of repeated ids, a case with
+every bit set).
 
 The last three lines are the card's ``nvidia-smi`` line, a JSON object
 describing each kernel, and ``{"ok": true, "device": {...}}``. Any failed
@@ -78,7 +96,8 @@ import numpy as np
 import torch
 
 from rad_tpu_torch import (HNSWIndex, _cuda, bench, bench_kernel_variants,
-                           create_local_traverser)
+                           bench_scalar_probe, create_local_traverser,
+                           profiling)
 from rad_tpu_torch.build.exact import build_hnsw_exact
 from rad_tpu_torch.fp import kernels
 from rad_tpu_torch.fp.pack import (popcount_rows, random_fingerprints,
@@ -86,9 +105,10 @@ from rad_tpu_torch.fp.pack import (popcount_rows, random_fingerprints,
 from rad_tpu_torch.fp.tanimoto import (tanimoto_distance,
                                        tanimoto_rows_to_target)
 from rad_tpu_torch.store import InMemorySmilesStore
-from rad_tpu_torch.synthetic import make_library
+from rad_tpu_torch.synthetic import make_library, make_receptor_tables
 from rad_tpu_torch.traverse import candidate_ops
 from rad_tpu_torch.traverse import device as tdev
+from rad_tpu_torch.traverse import multi
 from rad_tpu_torch.traverse.driver import DeviceTraverser
 
 # name -> wrapper, the wrapper attribute that counts its launches, source
@@ -129,6 +149,18 @@ KERNELS = {
         wrapper=kernels.nn_epilogue_probe,
         source="rad_tpu_torch/csrc/tanimoto.cu",
         replaces="benchmarks/bench_kernel_variants.py:134"),
+    "scalar_gather": dict(
+        wrapper=candidate_ops.scalar_gather,
+        source="rad_tpu_torch/csrc/scalar_probe.cu",
+        replaces="benchmarks/bench_scalar_probe.py:118"),
+    "scalar_checkset": dict(
+        wrapper=candidate_ops.scalar_checkset,
+        source="rad_tpu_torch/csrc/scalar_probe.cu",
+        replaces="benchmarks/bench_scalar_probe.py:125"),
+    "scalar_chain": dict(
+        wrapper=candidate_ops.scalar_chain,
+        source="rad_tpu_torch/csrc/scalar_probe.cu",
+        replaces="benchmarks/bench_scalar_probe.py:133"),
 }
 N = 1_000_000            # main-path library: molecules x 1024 bits
 N_TO_SCORE = N // 100    # main-path budget: 1% scored
@@ -146,6 +178,9 @@ REF_RECALL = {"edge": (0.558, 0.03), "ef32": (0.7064, 0.03),
               "ef128": (0.9000, 0.03)}
 EDGE_REF_TOL = 0.01
 NQ, NN = 2048, 1 << 20   # phase 7: the repo's benchmark problem
+PROBE_K, PROBE_N = 8192, 1 << 20   # the scalar-loop probes' problem
+PANEL_T = 43             # phase 8b: a DUDE-Z sized receptor panel
+PANEL_CHECKED = (0, PANEL_T // 2, PANEL_T - 1)
 # published peaks of one H100 SXM (NVIDIA's data sheet): dense int8
 # tensor-core operations and HBM3 bytes per second
 PEAK_INT8_OPS = 1979e12
@@ -235,11 +270,11 @@ def _library_ms(q, db, iters: int = 10) -> float:
                    warmup=1)
 
 
-def _fmt(r: dict) -> str:
+def _fmt(r: dict, library: str = "bf16 torch.mm") -> str:
     lib = r.get("library_ms")
     return (f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms; bound "
             f"{r['bound_ms']:.4g} ms by {r['bound_by']}"
-            + (f"; bf16 torch.mm {lib:.4f} ms" if lib is not None else ""))
+            + (f"; {library} {lib:.4f} ms" if lib is not None else ""))
 
 
 def phase_kernels(dev) -> dict:
@@ -309,6 +344,7 @@ def phase_kernels(dev) -> dict:
     print(f"[2 kernels] tanimoto_matrix 8192x8192: array-equal to plain; "
           f"{_fmt(r)}", flush=True)
     results.update(_candidate_kernels(dev))
+    results.update(_scalar_probes(dev))
     return results
 
 
@@ -398,6 +434,103 @@ def _candidate_kernels(dev) -> dict:
     print(f"[2 kernels] integrate_candidates kt=kc={K} (and kt={K // 2}), "
           f"N={N:,}, R={R:,}: every output and table array-equal to plain; "
           f"{_fmt(r)}", flush=True)
+    return results
+
+
+def _probe_case(name: str, dev) -> dict:
+    x = bench_scalar_probe.probe_inputs(PROBE_K, PROBE_N, dev)
+    if name == "repeated ids":
+        # every id four times over, shuffled
+        perm = torch.from_numpy(
+            np.random.default_rng(1).permutation(PROBE_K)).to(dev)
+        x["idx"] = x["idx"][: PROBE_K // 4].repeat(4, 1)[perm].contiguous()
+    elif name == "every bit set":
+        x["bm"].fill_(-1)
+        x["scored"].fill_(-1)
+    return x
+
+
+def _scalar_probes(dev) -> dict:
+    """The three scalar-loop probes against their twins: counts, the
+    gather sum and the emitted ids array-equal; the score sum, a float64
+    sum rounded once on both sides, within one f32 ulp."""
+    ops = candidate_ops
+    worst = {"scalar_gather": 0.0, "scalar_checkset": 0.0,
+             "scalar_chain": 0.0}
+    for name in ("benchmark inputs", "repeated ids", "every bit set"):
+        x = _probe_case(name, dev)
+        idx, tab, bm = x["idx"], x["tab"], x["bm"]
+        scored, scores = x["scored"], x["scores"]
+        bm_before = bm.clone()
+        gather = ops.scalar_gather(idx, tab)
+        checkset = ops.scalar_checkset(idx, bm)
+        out, emit, n_new, ssum = ops.scalar_chain(idx, scored, bm, scores)
+        torch.cuda.synchronize()
+        p_out, p_emit, p_n_new, p_ssum = ops.scalar_chain_plain(
+            idx, scored, bm, scores)
+        p_gather = ops.scalar_gather_plain(idx, tab)
+        p_checkset = ops.scalar_checkset_plain(idx, bm)
+        check(torch.equal(bm, bm_before), f"probes ({name}): bitmap modified")
+        check(torch.equal(gather, p_gather),
+              f"scalar_gather ({name}): {int(gather)} != {int(p_gather)}")
+        check(torch.equal(checkset, p_checkset), f"scalar_checkset ({name}): "
+              f"{int(checkset)} != {int(p_checkset)}")
+        check(int(n_new) == int(p_n_new) and torch.equal(emit, p_emit),
+              f"scalar_chain ({name}): n_new {int(n_new)} vs "
+              f"{int(p_n_new)}, emit equal: {torch.equal(emit, p_emit)}")
+        ulp = 2.0 ** -23 * max(float(p_ssum), 1.0)
+        d_ssum = abs(float(ssum) - float(p_ssum))
+        d_out = abs(float(out) - float(p_out))
+        check(d_ssum <= ulp and d_out <= 2 * ulp,
+              f"scalar_chain ({name}): ssum {float(ssum)} vs "
+              f"{float(p_ssum)}, out {float(out)} vs {float(p_out)} (one f32 "
+              f"ulp is {ulp:.3g})")
+        worst["scalar_chain"] = max(worst["scalar_chain"], d_ssum, d_out)
+        n_first = int(ops.scalar_checkset_plain(idx, bm))
+        print(f"[2 kernels] scalar probes, {name}: gather {int(gather)}, "
+              f"checkset {int(checkset)}, chain n_new {int(n_new)}, ssum "
+              f"{float(ssum):.4f} (plain {float(p_ssum):.4f}, diff "
+              f"{d_ssum:.3g}, one ulp {ulp:.3g}); counts and "
+              f"emit[:n_new] array-equal to plain", flush=True)
+        if name != "benchmark inputs":
+            continue
+        # bytes the card must move: idx once, one 32-byte sector per random
+        # access to device memory, each bitmap copy read once, outputs once.
+        # The bitmap's test-and-set goes to shared memory. Data-dependent
+        # parts counted for these inputs: the scores read are those of the
+        # distinct ids whose enqueue bit was clear
+        k, words = PROBE_K, PROBE_N // 32
+        nbytes = {
+            "scalar_gather": 4 * k + 32 * k + 4,
+            "scalar_checkset": 4 * k + 4 * words + 4,
+            "scalar_chain": (4 * k + 4 * words + 32 * k + 32 * n_first
+                             + 4 * k + 12),
+        }
+        fns = {
+            "scalar_gather": (lambda: ops.scalar_gather(idx, tab),
+                              lambda: ops.scalar_gather_plain(idx, tab)),
+            "scalar_checkset": (lambda: ops.scalar_checkset(idx, bm),
+                                lambda: ops.scalar_checkset_plain(idx, bm)),
+            "scalar_chain": (
+                lambda: ops.scalar_chain(idx, scored, bm, scores),
+                lambda: ops.scalar_chain_plain(idx, scored, bm, scores)),
+        }
+        flat_idx, flat_tab = idx.reshape(-1).long(), tab.reshape(-1)
+        results = {}
+        for kernel, (kernel_fn, plain_fn) in fns.items():
+            ms, plain_ms = _turns(kernel_fn, plain_fn, iters=20)
+            lib = (time_ms(lambda: flat_tab[flat_idx].sum(), 20)
+                   if kernel == "scalar_gather" else None)
+            results[kernel] = r = dict(ms=ms, plain_ms=plain_ms,
+                                       library_ms=lib,
+                                       **_bound(0.0, nbytes[kernel]))
+            print(f"[2 kernels] {kernel} k={k} n={PROBE_N:,}: "
+                  f"{ms / k * 1e6:.3f} ns per candidate; "
+                  f"{_fmt(r, 'tab[idx].sum()')} "
+                  f"({nbytes[kernel]:,} bytes: far under one launch's "
+                  f"latency, which is the practical floor)", flush=True)
+    for kernel, r in results.items():
+        r["max_abs_err"] = worst[kernel]
     return results
 
 
@@ -491,7 +624,8 @@ def phase_main_path(dev, n: int, n_to_score: int) -> dict:
                                   .astype(np.int32)).to(dev),
             keys=np.asarray(graph.keys), true_scores=true_scores,
             n_top=graph.layer_sizes[graph.max_level], mols=mols,
-            library=packed, graph=graph, stage=stage)
+            library=packed, graph=graph, stage=stage, index=loaded,
+            scoring_fn=scoring_fn, store=store)
 
     for name, count in launches.items():
         check(count > 0, f"{name} never launched on the main path")
@@ -599,6 +733,7 @@ def phase_device_scored(dev, ctx: dict) -> dict:
           f"and narrow (K2 narrow launches {narrow}); launches {launches}; "
           f"{sample.numel()} recorded scores equal the Tanimoto distances",
           flush=True)
+    ctx["solo_5a"] = _campaign_result(on)
 
     # 5c: a score-table scorer against phase 4's host-scored order
     table = torch.from_numpy(np.asarray(ctx["true_scores"], np.float64)
@@ -949,6 +1084,198 @@ def phase_nn(dev) -> tuple:
     return results, launches
 
 
+def _campaign_result(state) -> dict:
+    """What a campaign leaves behind: the scored set, the scores on it,
+    the scoring order and the drop count."""
+    scored = state.scored[:-1]
+    return dict(scored=scored.cpu().numpy(),
+                scores=state.scores[:-1][scored].cpu().numpy(),
+                order=tdev.read_order_log(state),
+                n_dropped=int(state.n_dropped))
+
+
+def _same_result(a: dict, b: dict) -> bool:
+    return all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def _panel_phase(dev, ctx: dict) -> None:
+    """8b: the receptor panel, one score table per campaign."""
+    dg, graph, n_top = ctx["dg"], ctx["graph"], ctx["n_top"]
+    t0 = time.perf_counter()
+    tables = make_receptor_tables(np.asarray(graph.packed), ctx["library"],
+                                  PANEL_T)
+    tab = torch.from_numpy(tables).to(dev)
+    print(f"[8b panel] {PANEL_T} receptor score tables over {N:,} nodes: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ids = torch.arange(n_top, dtype=torch.int32, device=dev)
+    dummy = torch.zeros((dg.n_nodes, 1), dtype=torch.uint8, device=dev)
+
+    def panel(t: int, budgets, max_steps: int = 1 << 20):
+        sub = tab[:t].contiguous()
+        st = multi.prime_multi(multi.init_multi(dg, t), dg, ids,
+                               sub[:, :n_top])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = multi.fused_run_multi_tables(st, dg, sub, budgets, batch=8,
+                                          max_steps=max_steps)
+        torch.cuda.synchronize()
+        return st, sub, time.perf_counter() - t0
+
+    def solo(t: int, budget: int) -> dict:
+        run = tdev.make_device_run(dg, dummy, tab[t], lambda _r, s: s,
+                                   batch=8)
+        st = tdev.prime(tdev.init_state(dg, head_capacity=None), dg, ids,
+                        tab[t, :n_top])
+        return _campaign_result(run(st, budget))
+
+    per_step = {}
+    for t in (1, 8, PANEL_T):
+        st, sub, dt = panel(t, N_TO_SCORE)
+        total, steps = int(st.n_scored.sum()), int(st.n_steps.max())
+        check(int(st.n_scored.min()) >= N_TO_SCORE,
+              f"8b: a campaign of {t} stopped below its budget")
+        # launches and synchronisations of a step, from a profiled window
+        # of 30 steps after 100 warm ones
+        warm, _, _ = panel(t, 10 ** 9, max_steps=100)
+        _, wall_ms, (dev_ms, _, calls) = profiling._profiled(
+            lambda: multi.fused_run_multi_tables(warm, dg, sub, 10 ** 9,
+                                                 batch=8, max_steps=30))
+        per_step[t] = {name: calls.get(name, 0) / 30 for name in (
+            "cudaLaunchKernel", "cudaStreamSynchronize", "cudaMemcpyAsync")}
+        print(f"[8b panel] T={t}: {total:,} scored in {steps} steps, "
+              f"{dt:.2f} s: {total / dt:,.0f} scored/s aggregate, "
+              f"{dt / steps * 1e3:.3f} ms/step; per step "
+              f"{per_step[t]['cudaLaunchKernel']:.1f} kernel launches, "
+              f"{per_step[t]['cudaStreamSynchronize']:.1f} stream "
+              f"synchronisations, {per_step[t]['cudaMemcpyAsync']:.1f} "
+              f"memcpys, the card busy {dev_ms / wall_ms:.1%} "
+              f"({dev_ms / 30:.3f} of {wall_ms / 30:.3f} ms under the "
+              f"profiler); frontier dropped {int(st.n_dropped.sum())}",
+              flush=True)
+        del warm
+    l1, lt = (per_step[t]["cudaLaunchKernel"] for t in (1, PANEL_T))
+    check(0 < lt < 4 * l1, f"8b: {lt:.0f} launches a step at T={PANEL_T} "
+          f"against {l1:.0f} at T=1: the step is not one batched step")
+    for t in PANEL_CHECKED:
+        got = _campaign_result(multi.campaign_state(st, t))
+        check(_same_result(got, solo(t, N_TO_SCORE)),
+              f"8b: campaign {t} of the panel differs from its solo run")
+        top = np.argsort(tables[t], kind="stable")[:100]
+        print(f"[8b panel] campaign {t}: scored set, scores, order and drops "
+              f"equal its solo make_device_run run; top-100 found "
+              f"{int(got['scored'][top].sum())} at "
+              f"{100 * len(got['order']) / N:.2f} % scored", flush=True)
+    # unequal budgets: campaigns freeze at different steps
+    budgets = [1000 + 50 * t for t in range(PANEL_T)]
+    st, _, dt = panel(PANEL_T, budgets)
+    steps = st.n_steps.tolist()
+    check(steps[0] < steps[-1], f"8b: no campaign froze early ({steps})")
+    for t in PANEL_CHECKED:
+        check(_same_result(_campaign_result(multi.campaign_state(st, t)),
+                           solo(t, budgets[t])),
+              f"8b: campaign {t} (budget {budgets[t]}) differs from its "
+              f"solo run")
+    print(f"[8b panel] budgets {budgets[0]}..{budgets[-1]}: campaigns froze "
+          f"after {min(steps)}..{max(steps)} steps ({dt:.2f} s); campaigns "
+          f"{PANEL_CHECKED} equal their solo runs", flush=True)
+
+
+def phase_engine_variants(dev, ctx: dict) -> dict:
+    """8: the scalar-loop probes' entry point, the multi-campaign sweeps,
+    the host-spilled order log and the packed adjacency."""
+    _reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench_scalar_probe.main([])
+    launches = _counts("scalar_gather", "scalar_checkset", "scalar_chain")
+    for line in out.getvalue().splitlines():
+        print(f"[8a scalar probes] {line}", flush=True)
+    check(rc == 0, f"rad_tpu_torch.bench_scalar_probe.main returned {rc}")
+    metric = json.loads(out.getvalue().splitlines()[-1])
+    check(metric["metric"] == "scalar_loop_probe" and all(
+        metric[k] > 0 for k in ("gather_ns", "checkset_ns", "chain_ns",
+                                "breakeven_ns")),
+        f"bench_scalar_probe's last line is not the metric: {metric}")
+    for name, count in launches.items():
+        check(count > 0, f"{name} never launched by bench_scalar_probe")
+    print(f"[8a launches] {launches}", flush=True)
+
+    _panel_phase(dev, ctx)
+
+    # 8c: Tanimoto targets, as phase 5 runs one
+    dg, packed, pops, n_top = ctx["dg"], ctx["packed"], ctx["pops"], \
+        ctx["n_top"]
+    rows = torch.tensor([(TARGET + 100_003 * i) % N for i in range(8)],
+                        device=dev)
+    targets, t_pops = packed[rows], pops[rows]
+    seeds = torch.arange(n_top, dtype=torch.int32, device=dev)
+    seed_scores = torch.stack([
+        tanimoto_rows_to_target(packed[:n_top], pops[:n_top], targets[i],
+                                t_pops[i]) for i in range(8)])
+    st = multi.prime_multi(multi.init_multi(dg, 8, head_capacity="auto"),
+                           dg, seeds, seed_scores)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = multi.fused_run_multi(st, dg, packed, pops, targets, t_pops,
+                               100_000, batch=64)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    total, steps = int(st.n_scored.sum()), int(st.n_steps.max())
+    check(_same_result(_campaign_result(multi.campaign_state(st, 0)),
+                       ctx["solo_5a"]),
+          "8c: campaign 0 differs from phase 5a's solo fused_run")
+    print(f"[8c targets] fused_run_multi, 8 Tanimoto targets, batch 64: "
+          f"{total:,} scored in {steps} steps, {dt:.2f} s ({total / dt:,.0f} "
+          f"scored/s aggregate, {dt / steps * 1e3:.3f} ms/step); campaign 0 "
+          f"equals phase 5a's solo run", flush=True)
+    del st
+
+    # 8d: the order log spilled to a file through a small device ring
+    host_ids = [m[0] for m in ctx["mols"]]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "order.i32")
+        traverser = create_local_traverser(
+            ctx["index"], ctx["scoring_fn"], smiles_store=ctx["store"],
+            batch_size=8, order_log_spill=path, log_capacity=1024)
+        traverser.prime()
+        stats = traverser.traverse(n_to_score=N_TO_SCORE)
+        mols = traverser.get_molecules()
+        traverser.shutdown()
+        size = os.path.getsize(path)
+    check([m[0] for m in mols] == host_ids and
+          [m[1] for m in mols] == [m[1] for m in ctx["mols"]],
+          f"8d: the spilled order ({len(mols)}) differs from phase 4's "
+          f"({len(host_ids)})")
+    check(size == 4 * stats["n_scored"], f"8d: the spill file holds {size} "
+          f"bytes for {stats['n_scored']} scored")
+    print(f"[8d spill] RADTraverser(order_log_spill=<file>, log_capacity="
+          f"1024): {len(mols):,} molecules in phase 4's order from a "
+          f"1,024-id device ring; the file holds {size:,} bytes", flush=True)
+
+    # 8e: the bit-packed adjacency under 5c's device-scored run
+    graph = ctx["graph"]
+    dg_p = tdev.prepare_device_graph(graph, dev, packed_adjacency=True)
+    check(dg_p.adj_bits == 20, f"8e: {dg_p.adj_bits}-bit fields at {N:,}")
+    table = torch.from_numpy(np.asarray(ctx["true_scores"], np.float64)
+                             [ctx["keys"]].astype(np.float32)).to(dev)
+    dummy = torch.zeros((dg.n_nodes, 1), dtype=torch.uint8, device=dev)
+    run = tdev.make_device_run(dg_p, dummy, table, lambda _r, t: t, batch=8)
+    st = tdev.prime(tdev.init_state(dg_p), dg_p, seeds, table[:n_top])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = run(st, N_TO_SCORE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(tdev.read_order_log(st).tolist() == host_ids,
+          "8e: the packed-adjacency order differs from 5c's")
+    print(f"[8e packed adjacency] make_device_run over {dg_p.adj_bits}-bit "
+          f"fields: {int(st.n_scored):,} scored in {int(st.n_steps)} steps, "
+          f"{dt:.2f} s; order identical to 5c's; adjacency table "
+          f"{dg_p.adj.numel() * 4:,} bytes packed, {dg.adj.numel() * 4:,} "
+          f"unpacked", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -967,6 +1294,7 @@ def main() -> int:
         nn_timings, nn_launches = phase_nn(dev)
         timings.update(nn_timings)
         launches.update(nn_launches)
+        launches.update(phase_engine_variants(dev, context))
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -1,7 +1,8 @@
 """Build-on-first-use loader for the package's CUDA kernels.
 
 ``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a plain
-C interface, keyed by a hash of the sources and the flags, and loaded with
+C interface, keyed by a hash of the sources (with the ``*.cuh`` headers
+they include) and the flags, and loaded with
 ``ctypes``. Each source compiles in its own ``nvcc`` process, all started
 together, and one more ``nvcc`` links the objects. The build lands in
 ``.rad_tpu_torch_build/`` beside the package (override with
@@ -74,6 +75,13 @@ def _declare(lib: ctypes.CDLL) -> None:
                                              ci, vp, ci, vp, vp, vp, vp, vp,
                                              vp]
     lib.rad_integrate_candidates.restype = ci
+    lib.rad_scalar_gather.argtypes = [vp, ci, vp, ci, vp, vp]
+    lib.rad_scalar_gather.restype = ci
+    lib.rad_scalar_checkset.argtypes = [vp, ci, vp, ci, vp, vp, vp]
+    lib.rad_scalar_checkset.restype = ci
+    lib.rad_scalar_chain.argtypes = [vp, ci, vp, vp, vp, ci, vp, vp, vp, vp,
+                                     vp]
+    lib.rad_scalar_chain.restype = ci
     lib.rad_cuda_error_string.argtypes = [ci]
     lib.rad_cuda_error_string.restype = ctypes.c_char_p
 
@@ -118,7 +126,7 @@ def load_library() -> ctypes.CDLL:
             return _lib
         sources = sorted(_CSRC.glob("*.cu"))
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in sources:
+        for src in sources + sorted(_CSRC.glob("*.cuh")):
             h.update(src.name.encode())
             h.update(src.read_bytes())
         tag = h.hexdigest()[:16]

@@ -111,6 +111,8 @@ class RADTraverser:
         buffer_capacity: int = 1 << 15,
         n_score_threads: int = 8,
         head_capacity: int | None | str = "auto",
+        order_log_spill: bool | str = False,
+        packed_adjacency: bool | int = False,
         device=None,
     ) -> None:
         if scoring_fn is None:
@@ -133,7 +135,8 @@ class RADTraverser:
             batch_size=batch_size, frontier_capacity=frontier_capacity,
             log_capacity=log_capacity, buffer_capacity=buffer_capacity,
             head_capacity=head_capacity, n_score_threads=n_score_threads,
-            device=device)
+            order_log_spill=order_log_spill,
+            packed_adjacency=packed_adjacency, device=device)
         logger.info("RADTraverser initialized (mode=local engine=device "
                     "device=%s)", self._device_engine.device)
 

@@ -45,37 +45,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "block_ops.cuh"
+
 namespace {
-
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;  // 32: one warp scans the warp totals
-
-// Exclusive count of `flag` over the block's threads in thread order;
-// *total receives the block's sum. Every thread of the block must call it.
-__device__ __forceinline__ int block_exclusive_count(bool flag, int* sums,
-                                                     int* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, flag);
-  if (lane == 0) sums[warp] = __popc(ballot);
-  __syncthreads();
-  if (warp == 0) {
-    const int v = sums[lane];
-    int inc = v;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, inc, off);
-      if (lane >= off) inc += t;
-    }
-    sums[lane] = inc - v;
-    if (lane == 31) sums[kWarps] = inc;
-  }
-  __syncthreads();
-  const int out = sums[warp] + __popc(ballot & ((1u << lane) - 1u));
-  *total = sums[kWarps];
-  __syncthreads();  // sums is rewritten by the next call
-  return out;
-}
 
 __global__ void __launch_bounds__(kThreads)
 candidate_filter_kernel(const int* __restrict__ cand, int k,

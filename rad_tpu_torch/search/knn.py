@@ -32,7 +32,8 @@ from rad_tpu_torch.graph.storage import HNSWGraph
 from rad_tpu_torch.search.visited import (hashset_check_insert_batch,
                                           hashset_init, use_dense_visited,
                                           visited_capacity_for)
-from rad_tpu_torch.traverse.device import prepare_device_graph
+from rad_tpu_torch.traverse.device import (adjacency_rows,
+                                           prepare_device_graph)
 
 __all__ = ["search_device"]
 
@@ -64,7 +65,7 @@ def _search_batch(packed, pops, dg, queries, k: int, ef: int,
     b = queries.shape[0]
     m0 = dg.m0
     e = min(expand_width, ef)
-    adj, offsets = dg.adj, dg.offsets_host
+    offsets = dg.offsets_host
     dense = visited_capacity is None and use_dense_visited(b, n)
     if visited_capacity is None:
         visited_capacity = visited_capacity_for(ef, m0, n)
@@ -82,7 +83,7 @@ def _search_batch(packed, pops, dg, queries, k: int, ef: int,
         # a query that did not improve recomputes the same step, so the
         # batch may run until none improves
         while True:
-            row = adj[int(offsets[l]) + ep]                  # [B, M0]
+            row = adjacency_rows(dg, int(offsets[l]) + ep)   # [B, M0]
             d_n = _query_dist(queries, q_pop, packed, pops, row, row >= 0)
             j = _first_min(d_n)
             best = d_n[bidx, j]
@@ -122,7 +123,7 @@ def _search_batch(packed, pops, dg, queries, k: int, ef: int,
         exp_new = expanded.clone().scatter_(
             1, sel, has_work | expanded.gather(1, sel))
         u = torch.clamp(beam_id.gather(1, sel), min=0).long()
-        rows = adj[u].reshape(b, e * m0)                     # [B, E*M0]
+        rows = adjacency_rows(dg, u).reshape(b, e * m0)      # [B, E*M0]
         valid = (rows >= 0) & has_work.repeat_interleave(m0, dim=1)
         if dense:
             seen = visited.gather(1, torch.clamp(rows, min=0).long())
@@ -161,13 +162,14 @@ def _search_batch(packed, pops, dg, queries, k: int, ef: int,
     return beam_d[:, :k], beam_id[:, :k]
 
 
-def _prep(graph: HNSWGraph, device):
+def _prep(graph: HNSWGraph, device, packed_adjacency: bool | int = False):
     """Per-graph device arrays (adjacency, fingerprints, popcounts),
-    cached on the graph object per device."""
+    cached on the graph object per device and adjacency layout."""
     cache = graph.__dict__.setdefault("_search_prep", {})
-    key = str(torch.device(device))
+    key = (str(torch.device(device)), packed_adjacency)
     if key not in cache:
-        dg = prepare_device_graph(graph, device)
+        dg = prepare_device_graph(graph, device,
+                                  packed_adjacency=packed_adjacency)
         packed = torch.from_numpy(np.ascontiguousarray(
             np.asarray(graph.packed, np.uint32)).view(np.int32)).to(device)
         pops = torch.from_numpy(np.asarray(graph.popcounts).astype(
@@ -195,19 +197,18 @@ def search_device(
     Query batches larger than ``chunk_size`` (default ``min(B, 4096)``)
     run in equal chunks (the last padded with copies of the last query),
     which bounds the B·H visited tables. ``visited_capacity`` forces the
-    hash table at that size. ``prefix_filter``/``prefix_keep`` and
-    ``packed_adjacency`` are not ported.
+    hash table at that size. ``packed_adjacency=True`` (or a field
+    width) searches over the bit-packed neighbor table
+    (:mod:`rad_tpu_torch.graph.adjpack`): the same results from
+    ``bits / 32`` of the adjacency memory. ``prefix_filter``/
+    ``prefix_keep`` are not ported.
     """
     if prefix_filter or prefix_keep:
         raise NotImplementedError(
             "prefix_filter/prefix_keep: the two-stage prefix screen is not "
             "ported (ROADMAP Queue 1 item 8)")
-    if packed_adjacency:
-        raise NotImplementedError(
-            "packed_adjacency: the bit-packed adjacency is not ported "
-            "(ROADMAP Queue 1 item 4)")
     device = resolve_device(device)
-    dg, packed, pops = _prep(graph, device)
+    dg, packed, pops = _prep(graph, device, packed_adjacency)
     queries = np.atleast_2d(np.asarray(queries, np.uint32))
     q_all = torch.from_numpy(np.ascontiguousarray(queries).view(
         np.int32)).to(device)

@@ -1,6 +1,7 @@
-"""Seeded synthetic screening library for smoke runs and profiles.
+"""Seeded synthetic screening data for smoke runs and profiles.
 
-The recipe of ``examples/enrichment_example.py:make_library_batched``,
+The library recipe of ``examples/enrichment_example.py:make_library_batched``
+and the receptor-panel score tables of ``examples/panel_screening.py``,
 copied so this package stays free of the JAX one.
 """
 
@@ -10,7 +11,7 @@ import numpy as np
 
 from rad_tpu_torch.fp.pack import pack_fingerprints, popcount_rows_np
 
-__all__ = ["make_library"]
+__all__ = ["make_library", "make_receptor_scores", "make_receptor_tables"]
 
 
 def make_library(n: int, n_bits: int = 1024, mutation: float = 0.06,
@@ -61,3 +62,31 @@ def make_library(n: int, n_bits: int = 1024, mutation: float = 0.06,
     tani_dist = 1.0 - inter / np.maximum(pops + t_pop - inter, 1)
     scores = 50.0 * tani_dist - 40.0 + rng.normal(0, 0.25, n)
     return packed, scores.astype(np.float64)
+
+
+def make_receptor_scores(fps: np.ndarray, center: np.ndarray,
+                         seed: int) -> np.ndarray:
+    """Synthetic per-receptor DOCK scores ``[len(fps)]`` f32: molecules
+    near the receptor's pharmacophore (the packed fingerprint ``center``)
+    score best (lowest), plus noise."""
+    rng = np.random.default_rng(seed)
+    inter = popcount_rows_np(fps & center[None, :])
+    pops = popcount_rows_np(fps)
+    c_pop = int(popcount_rows_np(center[None, :])[0])
+    sim = inter / np.maximum(pops + c_pop - inter, 1)
+    return (-sim + rng.normal(0, 0.005, size=len(fps))).astype(np.float32)
+
+
+def make_receptor_tables(node_fps: np.ndarray, library_fps: np.ndarray,
+                         n_receptors: int, seed: int = 9) -> np.ndarray:
+    """``[n_receptors, N]`` f32 score tables indexed by node id, one per
+    receptor of a panel. ``node_fps`` are the graph's fingerprints (node
+    order), ``library_fps`` the library in its original order: the
+    pharmacophore centers are drawn from the deeper half of its mutation
+    tree, so a similarity gradient exists across the manifold."""
+    n = len(library_fps)
+    rng = np.random.default_rng(seed)
+    return np.stack([
+        make_receptor_scores(node_fps, library_fps[rng.integers(n // 2, n)],
+                             seed=100 + r)
+        for r in range(n_receptors)])

@@ -35,19 +35,24 @@ trailing sentinel slot that absorbs them: its logical contents are
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
 
 from rad_tpu_torch.devices import resolve_device
 from rad_tpu_torch.fp.tanimoto import tanimoto_rows_to_target
+from rad_tpu_torch.graph.adjpack import (adj_bits_for, pack_adjacency_numpy,
+                                         pack_adjacency_rows,
+                                         packed_adj_words,
+                                         unpack_adjacency_rows)
 from rad_tpu_torch.graph.storage import HNSWGraph
 from rad_tpu_torch.traverse import candidate_ops
 from rad_tpu_torch.traverse.candidate_ops import _first_occurrence
 
 __all__ = ["DeviceGraph", "TraversalState", "DenseStateOps",
-           "flatten_adjacency_host", "prepare_device_graph", "init_state",
+           "flatten_adjacency_host", "prepare_device_graph",
+           "pack_device_graph", "adjacency_rows", "init_state",
            "auto_frontier_capacity", "expand", "integrate", "prime",
            "read_order_log", "gather_scores", "frontier_size",
            "frontier_empty", "frontier_live", "frontier_live_scan",
@@ -64,7 +69,10 @@ class DeviceGraph:
     """Traversal view of an HNSWGraph: one flat padded adjacency table.
 
     adj:     [R, M0] int32 — neighbor node ids, -1 padded; row r encodes
-             (node, level) by the row trick.
+             (node, level) by the row trick. With ``adj_bits < 32`` the
+             table is ``[R, ceil(M0*adj_bits/32)]`` bit-packed words
+             (:mod:`rad_tpu_torch.graph.adjpack`) that
+             :func:`adjacency_rows` decodes for each popped batch.
     offsets: [L+2] int32 — layer_offset[l] = Σ_{l' < l} N_{l'}, then R,
              then a trailing R sentinel; ``offsets_host`` is its numpy copy.
     """
@@ -76,6 +84,7 @@ class DeviceGraph:
     n_rows: int
     m0: int
     max_level: int
+    adj_bits: int = 32
 
     @property
     def device(self) -> torch.device:
@@ -103,10 +112,29 @@ def flatten_adjacency_host(graph: HNSWGraph):
     return adj, offsets_arr, m0, r
 
 
-def prepare_device_graph(graph: HNSWGraph, device) -> DeviceGraph:
+def prepare_device_graph(graph: HNSWGraph, device,
+                         packed_adjacency: bool | int = False
+                         ) -> DeviceGraph:
     """Flatten the graph's tables on the host and upload them to
-    ``device`` (int32 adjacency)."""
+    ``device``.
+
+    ``packed_adjacency=True`` (or an explicit field width) packs the table
+    to bit fields on the host before the upload, so the int32 table never
+    reaches the device; a width of 32 or more leaves it unpacked."""
     adj, offsets_arr, m0, r = flatten_adjacency_host(graph)
+    bits = 32
+    if packed_adjacency:
+        bits = (adj_bits_for(len(graph)) if packed_adjacency is True
+                else int(packed_adjacency))
+        if bits < 32:
+            out = np.zeros((r, packed_adj_words(m0, bits)), np.uint32)
+            step = 1 << 20  # bounds the packer's int64 temporaries
+            for lo in range(0, r, step):
+                out[lo:lo + step] = pack_adjacency_numpy(adj[lo:lo + step],
+                                                         bits)
+            adj = out.view(np.int32)
+        else:
+            bits = 32
     return DeviceGraph(
         adj=torch.from_numpy(adj).to(device),
         offsets=torch.from_numpy(offsets_arr).to(device),
@@ -115,7 +143,34 @@ def prepare_device_graph(graph: HNSWGraph, device) -> DeviceGraph:
         n_rows=r,
         m0=m0,
         max_level=graph.max_level,
+        adj_bits=bits,
     )
+
+
+def pack_device_graph(dg: DeviceGraph, bits: int | None = None,
+                      chunk: int = 1 << 22) -> DeviceGraph:
+    """Re-encode a DeviceGraph's int32 adjacency as ``bits``-wide packed
+    fields on its device (``None``: :func:`adj_bits_for` of its node
+    count), ``chunk`` rows at a time. The int32 source must be resident;
+    :func:`prepare_device_graph` packs on the host instead."""
+    if bits is None:
+        bits = adj_bits_for(dg.n_nodes)
+    if dg.adj_bits < 32 or bits >= 32:
+        return dg
+    out = torch.empty((dg.n_rows, packed_adj_words(dg.m0, bits)),
+                      dtype=torch.int32, device=dg.device)
+    for lo in range(0, dg.n_rows, chunk):
+        out[lo:lo + chunk] = pack_adjacency_rows(dg.adj[lo:lo + chunk], bits)
+    return replace(dg, adj=out, adj_bits=bits)
+
+
+def adjacency_rows(dg: DeviceGraph, rows: torch.Tensor) -> torch.Tensor:
+    """``[..., M0]`` int32 neighbor ids of table rows ``rows`` (decoded
+    when the table is bit-packed)."""
+    got = dg.adj[rows.long()]
+    if dg.adj_bits < 32:
+        got = unpack_adjacency_rows(got, dg.m0, dg.adj_bits)
+    return got
 
 
 @dataclass
@@ -236,7 +291,13 @@ def _set_drop_(arr: torch.Tensor, idx: torch.Tensor, vals) -> None:
     """``arr[idx] = vals`` in place; out-of-range indices write the
     trailing sentinel slot of ``arr`` instead (JAX ``mode="drop"``)."""
     size = arr.shape[0] - 1
-    arr[torch.where((idx >= 0) & (idx < size), idx, size).long()] = vals
+    idx = torch.where((idx >= 0) & (idx < size), idx, size).long()
+    if torch.is_tensor(vals):
+        arr[idx] = vals
+    else:
+        # a Python scalar assigned through an index is first copied to
+        # the device, which synchronises; index_fill_ takes it as is
+        arr.index_fill_(0, idx, vals)
 
 
 def _sorted(scores: torch.Tensor, rows: torch.Tensor):
@@ -372,7 +433,7 @@ def expand(state: TraversalState, dg: DeviceGraph, batch: int,
     level = _level_of_row(dg, pop_row)
     node = pop_row - dg.offsets[level.long()]
     safe_row = torch.where(valid, pop_row, 0)
-    cand = dg.adj[safe_row.long()].masked_fill(~valid[:, None], -1)
+    cand = adjacency_rows(dg, safe_row).masked_fill(~valid[:, None], -1)
 
     n = dg.n_nodes
     cand_flat = cand.reshape(-1)

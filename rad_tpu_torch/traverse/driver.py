@@ -9,6 +9,11 @@ per-molecule scoring calls of a batch in parallel, and with
 scores the current one. ``traverse(checkpoint_path=...)`` persists the
 state periodically; :meth:`DeviceTraverser.load_checkpoint` resumes it
 (files in ``rad_tpu``'s layout, so either package resumes the other's).
+``order_log_spill`` drains the device's order-log ring into a host log
+(:mod:`~rad_tpu_torch.traverse.spill`) after every integrate, so the
+complete order survives a ``log_capacity`` far below the scored count;
+``packed_adjacency`` keeps the neighbor table bit-packed on the device
+(:mod:`rad_tpu_torch.graph.adjpack`), the same traversal from fewer bytes.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from rad_tpu_torch.store.smiles_store import SmilesStore
 from rad_tpu_torch.traverse import device as dev
 from rad_tpu_torch.traverse.pipeline import (HostScoringBridge,
                                              pipelined_traverse)
+from rad_tpu_torch.traverse.spill import SpilledOrderLog
 
 logger = logging.getLogger(__name__)
 
@@ -49,19 +55,23 @@ class DeviceTraverser:
         n_score_threads: int = 8,
         failed_score: float = float("inf"),
         order_log_spill: bool | str = False,
-        packed_adjacency: bool = False,
+        packed_adjacency: bool | int = False,
         device=None,
     ) -> None:
-        if order_log_spill or packed_adjacency:
-            raise NotImplementedError(
-                "order_log_spill / packed_adjacency are not ported yet "
-                "(ROADMAP Queue 1 items 4 and 10)")
         self.graph = graph
         self.batch_size = batch_size
         self.device = resolve_device(device)
-        self.dg = dev.prepare_device_graph(graph, self.device)
+        self.dg = dev.prepare_device_graph(
+            graph, self.device, packed_adjacency=packed_adjacency)
         self.state = dev.init_state(self.dg, frontier_capacity, log_capacity,
                                     buffer_capacity, head_capacity)
+        # True: the complete order accumulates in host RAM; a path: in
+        # that file (an existing file is resumed)
+        self._spill = None
+        if order_log_spill:
+            self._spill = SpilledOrderLog(
+                order_log_spill if isinstance(order_log_spill, str)
+                else None)
         self._primed = False
         self.stats = {
             "steps": 0,
@@ -90,6 +100,8 @@ class DeviceTraverser:
                                torch.from_numpy(ids).to(self.device),
                                torch.from_numpy(scores).to(self.device))
         self._primed = True
+        if self._spill is not None:
+            self._spill.drain(self.state)
         return n_top
 
     def traverse(
@@ -126,10 +138,13 @@ class DeviceTraverser:
         n_since_ckpt = [0]
 
         def after_integrate(state):
-            n_since_ckpt[0] += 1
-            if n_since_ckpt[0] >= checkpoint_interval:
-                n_since_ckpt[0] = 0
-                dev.save_state_atomic(state, checkpoint_path)
+            if self._spill is not None:
+                self._spill.drain(state)
+            if checkpoint_path is not None:
+                n_since_ckpt[0] += 1
+                if n_since_ckpt[0] >= checkpoint_interval:
+                    n_since_ckpt[0] = 0
+                    dev.save_state_atomic(state, checkpoint_path)
 
         self.state, _ = pipelined_traverse(
             self.state, self._expand, self._integrate,
@@ -137,8 +152,7 @@ class DeviceTraverser:
             n_scored_of=lambda st: int(st.n_scored),
             n_to_score=n_to_score, timeout=timeout,
             pipeline_depth=pipeline_depth, stats=self.stats,
-            after_integrate=(after_integrate if checkpoint_path is not None
-                             else None))
+            after_integrate=after_integrate)
         if checkpoint_path is not None:
             dev.save_state_atomic(self.state, checkpoint_path)
         return dict(self.stats, n_scored=self.n_scored)
@@ -170,16 +184,28 @@ class DeviceTraverser:
             raise ValueError("checkpoint is for a different graph size")
         self.state = state
         self._primed = bool(int(state.n_scored) > 0)
+        # an attached spill log may hold order an earlier run wrote past
+        # this checkpoint: drop it, so the log never leads the state
+        if self._spill is not None and len(self._spill) > self.n_scored:
+            self._spill.truncate(self.n_scored)
 
     # -------------------------------------------------------------- results
     @property
     def n_scored(self) -> int:
         return int(self.state.n_scored)
 
+    def _order(self) -> np.ndarray:
+        """Scored ids in traversal order: from the host log when spilling
+        (complete past the device ring's capacity), else the ring."""
+        if self._spill is None:
+            return np.asarray(dev.read_order_log(self.state))
+        self._spill.drain(self.state)
+        return np.asarray(self._spill.read())
+
     def get_molecules(self, n: int | None = None
                       ) -> List[Tuple[int, float, str]]:
         """(node_id, score, smiles) in traversal order."""
-        ids = dev.read_order_log(self.state)
+        ids = self._order()
         if n is not None:
             ids = ids[:n]
         scores = dev.gather_scores(self.state, ids)
@@ -191,7 +217,7 @@ class DeviceTraverser:
                            ) -> List[Tuple[int, float, str]]:
         """Best-scoring molecules, ties broken by traversal order; selects
         the top ``n`` before any SMILES lookup."""
-        ids = np.asarray(dev.read_order_log(self.state))
+        ids = self._order()
         scores = dev.gather_scores(self.state, ids)
         order = np.argsort(scores, kind="stable")
         if n is not None:

@@ -167,6 +167,8 @@ def test_port_never_loads_jax():
         t.shutdown()
         assert index.search(fps[:3], k=3)[1].shape == (3, 3)
         import rad_tpu_torch.bench, rad_tpu_torch.bench_kernel_variants
+        import rad_tpu_torch.bench_scalar_probe, rad_tpu_torch.graph.adjpack
+        import rad_tpu_torch.traverse.multi, rad_tpu_torch.traverse.spill
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "rad_tpu",
                                             "bench", "benchmarks"))

@@ -97,9 +97,11 @@ def test_index_search_matches_reference(graphs):
     assert k.dtype == np.int64 and k[0, 0] in keys
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         port.search(queries, prefix_filter=128)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        knn.search_device(port.graph, queries, packed_adjacency=True,
-                          device="cpu")
+    d_p, i_p = knn.search_device(port.graph, queries, packed_adjacency=True,
+                                 device="cpu")
+    d_u, i_u = knn.search_device(port.graph, queries, device="cpu")
+    np.testing.assert_array_equal(d_p.numpy(), d_u.numpy())
+    np.testing.assert_array_equal(i_p.numpy(), i_u.numpy())
 
 
 @pytest.mark.parametrize("cap,probes", [(16, 4), (64, 4), (64, 2)])

@@ -173,11 +173,21 @@ def test_first_occurrence_forms_agree():
 
 
 def test_unported_options_raise(graphs):
+    """The two options this test once expected to raise are ported: a
+    packed neighbor table and a host-spilled order log (a ring of 48 ids,
+    below the 60 scored) give the plain traverser's scoring order."""
     _, g = graphs
-    with pytest.raises(NotImplementedError):
-        DeviceTraverser(g, _score, packed_adjacency=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        DeviceTraverser(g, _score, order_log_spill=True, device="cpu")
+    orders = []
+    for kw in ({}, dict(packed_adjacency=True),
+               dict(order_log_spill=True, log_capacity=48)):
+        t = DeviceTraverser(g, _score, batch_size=4, n_score_threads=1,
+                            device="cpu", **kw)
+        t.prime()
+        t.traverse(n_to_score=60)
+        orders.append([m[0] for m in t.get_molecules()])
+        t.shutdown()
+    assert len(orders[0]) >= 60
+    assert orders[1] == orders[0] and orders[2] == orders[0]
 
 
 def test_periodic_checkpoint_restores_n_scored(graphs, tmp_path):
