@@ -6,16 +6,26 @@
 Phases, one status line each (plus detail lines):
 
 1. device: ``nvidia-smi`` name and power limit, torch/CUDA versions, and
-   the kernels built by nvcc for sm_90a from ``rad_tpu_torch/csrc``;
+   the kernels built by nvcc for sm_90a from ``rad_tpu_torch/csrc``, with
+   the registers and spill bytes of every ``tanimoto_nn_kernel`` and
+   ``tanimoto_matrix_kernel`` instance from the ``ptxas -v`` log (a spill
+   fails the run);
 2. each CUDA kernel against its plain-torch twin on the card, at the
    shapes its path gives it (1024-bit fingerprints; 2,048 candidates over
    the 1M graph's 1,000,000 ids and 1,066,610 rows): array-equal (the
    bucket kernel's approximate-reciprocal epilogue: decoded distances
    within 2^-14 and chosen entries' true distances within 1e-6), both
    timed with CUDA events, beside the kernel's bound on the card (the
-   larger of its int8 tensor-core operations over 1,979 TOP/s and its
+   larger of its 1-bit tensor-core operations over 15,832 TOP/s and its
    bytes over 3.35 TB/s) and, for the Tanimoto kernels, one bf16
    ``torch.mm`` of the unpacked bits (the intersections alone);
+   ``tanimoto_matrix`` also off its 128-row tiles (Q = 1, 65, 130; N = 64,
+   200, 201; rows of 1, 6, 8, 32 and 64 words) and, timed through the
+   wrapper and again replayed from a CUDA graph (the kernel without the
+   launch path), at the skewed shapes the build gives it (256 x 4096,
+   64 x 19,536), array-equal each;
+   and the divide of the tensor-core kernels' epilogues compared with
+   ``__fdiv_rn`` on every pair of counts it can meet;
 3. a 16,384-row library built with ``build_hnsw_exact`` on the card and on
    the CPU (twins): edge-identical on every layer; then the same traversal
    on both: identical scoring order;
@@ -47,8 +57,11 @@ Phases, one status line each (plus detail lines):
    granularities: edge-identical;
 7. the 1-NN sweep of the repo's benchmark problem, 2048 queries x
    1,048,576 rows x 1024 bits (``random_fingerprints``, density 0.1,
-   seed 0; the queries drawn with seed 1, not from the library): (a) ``tanimoto_nn`` array-equal to its twin and to the
-   ``matmul`` path's minima; (b) the fast epilogue at n_tile 2048 and
+   seed 0; the queries drawn with seed 1, not from the library), after a
+   ragged case (130 x 4,224, rows of 8 and 6 words, every epilogue; and
+   rows of 288 words, the widest the kernel takes): (a)
+   ``tanimoto_nn`` array-equal to its twin and to the ``matmul`` path's
+   minima; (b) the fast epilogue at n_tile 2048 and
    1024: decoded distances within 2^-12 of the twin's, chosen ids' true
    distances within 2^-12 of the exact minima; (c) the floor, unpack and
    epilogue probes at q_tile 512, n_tile 1024 array-equal to their twins
@@ -182,8 +195,13 @@ PROBE_K, PROBE_N = 8192, 1 << 20   # the scalar-loop probes' problem
 PANEL_T = 43             # phase 8b: a DUDE-Z sized receptor panel
 PANEL_CHECKED = (0, PANEL_T // 2, PANEL_T - 1)
 # published peaks of one H100 SXM (NVIDIA's data sheet): dense int8
-# tensor-core operations and HBM3 bytes per second
+# tensor-core operations and HBM3 bytes per second. The data sheet gives no
+# 1-bit rate; a 1-bit wgmma (k256) takes as long as an int8 one (k32) and
+# covers 8x the depth, so its peak is 8x the int8 peak, 15,832 TOP/s
+# (`python -m rad_tpu_torch.bench_mma_rate` read 15,726.7 on an NVIDIA H100
+# 80GB HBM3 at 700.00 W). Fingerprints are bits, so that is their peak.
 PEAK_INT8_OPS = 1979e12
+PEAK_B1_OPS = 8 * PEAK_INT8_OPS
 PEAK_BYTES = 3.35e12
 
 
@@ -233,6 +251,19 @@ def phase_device() -> str:
     for line in info["log"].splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"    ptxas: {line.strip()}")
+    found = {"tanimoto_nn_kernel": 0, "tanimoto_matrix_kernel": 0}
+    for name, res in sorted(_cuda.kernel_resources().items()):
+        kernel = next((k for k in found if k in name), None)
+        if kernel is None or "registers" not in res:
+            continue
+        found[kernel] += 1
+        spill = res["spill_stores"] + res["spill_loads"]
+        print(f"[1 build] {name}: {res['registers']} registers, {spill} "
+              f"spill bytes", flush=True)
+        check(spill == 0, f"{name} spills {spill} bytes")
+    check(found == {"tanimoto_nn_kernel": 5, "tanimoto_matrix_kernel": 1},
+          f"ptxas log names {found}, not 5 tanimoto_nn_kernel instances and "
+          f"tanimoto_matrix_kernel")
     return smi
 
 
@@ -246,16 +277,16 @@ def _turns(kernel_fn, plain_fn, iters: int = 10, warmup: int = 2):
 
 
 def _bound(ops: float, nbytes: float) -> dict:
-    """The least time the card could take: operations over the int8 peak
-    or bytes over the memory rate, whichever is larger."""
-    t_ops = ops / PEAK_INT8_OPS * 1e3
+    """The least time the card could take: 1-bit operations over their
+    tensor-core peak or bytes over the memory rate, whichever is larger."""
+    t_ops = ops / PEAK_B1_OPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def _tanimoto_bound(nq: int, nn: int, w: int, out_bytes: int) -> dict:
-    """2*Q*N*D int8 operations; packed rows and popcounts read once, the
+    """2*Q*N*D 1-bit operations; packed rows and popcounts read once, the
     output written once."""
     return _bound(2.0 * nq * nn * 32 * w, (nq + nn) * (4 * w + 4)
                   + out_bytes)
@@ -343,9 +374,86 @@ def phase_kernels(dev) -> dict:
         **_tanimoto_bound(8192, 8192, 32, 8192 * 8192 * 4))
     print(f"[2 kernels] tanimoto_matrix 8192x8192: array-equal to plain; "
           f"{_fmt(r)}", flush=True)
+    _matrix_shapes(dev)
     results.update(_candidate_kernels(dev))
     results.update(_scalar_probes(dev))
     return results
+
+
+RAGGED_WORDS = (1, 6, 8, 32, 64)   # packed words a row; 6: a 166-bit key set
+
+
+def _ragged_case(nq: int, nn: int, w: int, dev):
+    """Random ``[nq, w]`` queries and an ``[nn, w]`` db with copies of the
+    first and last query planted, an empty row, an all-ones row and an
+    empty query: no symmetric case for a wrong accumulator map to hide
+    behind."""
+    rng = np.random.default_rng(1000 * w + nq + nn)
+    q, db = (np.packbits(rng.random((n, w * 32)) < 0.15, axis=1,
+                         bitorder="little").view(np.uint32)
+             for n in (nq, nn))
+    db[min(3, nn - 1)], db[nn - 1] = q[0], q[nq - 1]
+    db[nn // 2], db[nn // 3] = 0, 0xFFFFFFFF
+    if nq > 2:
+        q[nq // 2] = 0
+    return to_torch_packed(q, dev), to_torch_packed(db, dev)
+
+
+def _matrix_shapes(dev) -> None:
+    """tanimoto_matrix off its 128-row tiles (Q, N not multiples of the
+    tile; N odd, where rows start off an 8-byte boundary; W from 1 word to
+    two K chunks), then the skewed shapes the build gives it (an upper
+    layer, a probe-table block), timed; and the exhaustive check of the
+    divide its epilogue runs."""
+    bad = kernels.div_counts_mismatches(dev)
+    check(bad == 0, f"div_counts differs from __fdiv_rn on {bad} pairs")
+    print("[2 kernels] div_counts: the bits of __fdiv_rn for every pair of "
+          "counts 0 <= inter <= union <= 65,536", flush=True)
+    shapes = ((1, 64), (65, 200), (130, 64), (130, 201))
+    for w in RAGGED_WORDS:
+        for nq, nn in shapes:
+            q, db = _ragged_case(nq, nn, w, dev)
+            out = kernels.tanimoto_matrix(q, db)
+            torch.cuda.synchronize()
+            plain = kernels.tanimoto_matrix_plain(q, db)
+            check(torch.equal(out, plain),
+                  f"tanimoto_matrix {nq}x{nn}, {w} words != plain (max abs "
+                  f"err {_max_abs_err(out, plain)})")
+    print(f"[2 kernels] tanimoto_matrix ragged: array-equal to plain at "
+          f"{', '.join(f'{a}x{b}' for a, b in shapes)}, words "
+          f"{RAGGED_WORDS}", flush=True)
+    for nq, nn in ((256, 4096), (64, 19536)):
+        q = to_torch_packed(random_fingerprints(nq, 1024, 0.12, seed=5), dev)
+        db = to_torch_packed(random_fingerprints(nn, 1024, 0.12, seed=6), dev)
+        qp, dp = popcount_rows(q), popcount_rows(db)
+        out = kernels.tanimoto_matrix(q, db, qp, dp)
+        torch.cuda.synchronize()
+        plain = kernels.tanimoto_matrix_plain(q, db, qp, dp)
+        check(torch.equal(out, plain), f"tanimoto_matrix {nq}x{nn} != plain "
+              f"(max abs err {_max_abs_err(out, plain)})")
+        ms, plain_ms = _turns(
+            lambda: kernels.tanimoto_matrix(q, db, qp, dp),
+            lambda: kernels.tanimoto_matrix_plain(q, db, qp, dp), iters=50)
+        r = dict(ms=ms, plain_ms=plain_ms, library_ms=_library_ms(q, db),
+                 **_tanimoto_bound(nq, nn, 32, nq * nn * 4))
+        device_ms = _graph_ms(lambda: kernels.tanimoto_matrix(q, db, qp, dp))
+        print(f"[2 kernels] tanimoto_matrix {nq}x{nn}: array-equal to "
+              f"plain; {_fmt(r)}; replayed from a CUDA graph "
+              f"{device_ms:.4f} ms", flush=True)
+
+
+def _graph_ms(fn, calls: int = 20) -> float:
+    """Milliseconds per call of ``fn`` replayed from a CUDA graph of
+    ``calls`` calls: the kernels' time without the host's launch path,
+    which a small shape's eager time mostly is."""
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(calls):
+                fn()
+    return min(time_ms(graph.replay, 10, warmup=1) for _ in range(3)) / calls
 
 
 def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -994,9 +1102,63 @@ def _nn_checks(q, db, qp, dp) -> dict:
     return err
 
 
+def _nn_ragged(dev) -> None:
+    """Every epilogue of the 1-NN kernel against its twin with Q and N off
+    the kernel's 128-row tiles (N a multiple of n_tile = 64 only), rows of
+    8 words (16-byte staging) and 6 (4-byte staging)."""
+    nq, nn, n_tile = 130, 4224, 64
+    for w in (8, 6):
+        q, db = _ragged_case(nq, nn, w, dev)
+        d, i = kernels.tanimoto_nn(q, db, n_tile=n_tile)
+        torch.cuda.synchronize()
+        pd, pi = kernels.tanimoto_nn_plain(q, db, n_tile=n_tile)
+        check(torch.equal(d, pd) and torch.equal(i, pi),
+              f"ragged tanimoto_nn, {w} words != plain")
+        check(float(d[0]) == 0 and float(d[-1]) == 0,
+              "ragged tanimoto_nn missed a planted copy")
+        fd, fi = kernels.tanimoto_nn(q, db, n_tile=n_tile, approx=True)
+        pfd, _ = kernels.tanimoto_nn_plain(q, db, n_tile=n_tile, approx=True)
+        true = kernels.tanimoto_matrix_plain(q, db)
+        chosen = true.gather(1, fi.long()[:, None])[:, 0]
+        derr = float((fd - pfd).abs().max())
+        cerr = float((chosen - true.amin(dim=1)).abs().max())
+        check(derr <= 2.0 ** -12 and cerr <= 2.0 ** -12,
+              f"ragged fast tanimoto_nn, {w} words: {derr}, {cerr} (bounds "
+              f"2^-12)")
+        check(torch.equal(kernels.nn_floor(q, db, 1, n_tile),
+                          kernels.nn_floor_plain(q, db, 1, n_tile)),
+              f"ragged floor probe, {w} words != plain")
+        check(torch.equal(
+            kernels.nn_epilogue_probe(q, db, n_tile, "exact-pk"),
+            kernels.nn_epilogue_probe_plain(q, db, n_tile, "exact-pk")),
+            f"ragged exact-pk probe, {w} words != plain")
+        nerr = _max_abs_err(
+            kernels.nn_epilogue_probe(q, db, n_tile, "newton"),
+            kernels.nn_epilogue_probe_plain(q, db, n_tile, "newton"))
+        check(nerr <= 1e-6, f"ragged newton probe, {w} words: {nerr}")
+    print(f"[7 ragged] {nq} x {nn:,}, 8 and 6 words, n_tile {n_tile}: exact "
+          f"(distances and ids), floor and exact-pk array-equal to plain, "
+          f"fast within 2^-12, newton within 1e-6", flush=True)
+    # the widest rows the kernel takes: nine resident query chunks, the
+    # largest shared-memory request of any launch
+    w = kernels.NN_MAX_WORDS
+    q, db = _ragged_case(nq, 640, w, dev)
+    d, i = kernels.tanimoto_nn(q, db, n_tile=n_tile)
+    torch.cuda.synchronize()
+    pd, pi = kernels.tanimoto_nn_plain(q, db, n_tile=n_tile)
+    check(torch.equal(d, pd) and torch.equal(i, pi),
+          f"tanimoto_nn at {w} words != plain")
+    check(torch.equal(kernels.nn_floor(q, db, 1, n_tile),
+                      kernels.nn_floor_plain(q, db, 1, n_tile)),
+          f"floor probe at {w} words != plain")
+    print(f"[7 ragged] {nq} x 640, {w} words: exact and floor array-equal "
+          f"to plain", flush=True)
+
+
 def phase_nn(dev) -> tuple:
     """7: the 1-NN kernels at the repo's benchmark problem, then the
     port's benchmark entry points as the path that launches them."""
+    _nn_ragged(dev)
     t0 = time.perf_counter()
     db = to_torch_packed(random_fingerprints(NN, 1024, 0.1, seed=0), dev)
     # fresh queries: bench.py's own (the library's first rows) would find

@@ -25,7 +25,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_info", "check", "NVCC_FLAGS"]
+__all__ = ["load_library", "build_info", "kernel_resources", "check",
+           "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -69,6 +70,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rad_tanimoto_nn.restype = ci
     lib.rad_nn_unpack_probe.argtypes = [vp, ci, ci, ci, ci, ci, vp, vp]
     lib.rad_nn_unpack_probe.restype = ci
+    lib.rad_div_counts_check.argtypes = [ci, vp, vp]
+    lib.rad_div_counts_check.restype = ci
     lib.rad_candidate_filter.argtypes = [vp, ci, vp, ci, vp, vp, vp]
     lib.rad_candidate_filter.restype = ci
     lib.rad_integrate_candidates.argtypes = [vp, vp, ci, vp, vp, ci, vp, vp,
@@ -109,11 +112,12 @@ def _compile_and_link(sources, so_path: Path, log_path: Path) -> None:
         log.append(f"{nvcc} -shared (link)\n{proc.stdout}{proc.stderr}")
         if proc.returncode != 0:
             failed.append(f"link (exit {proc.returncode}):\n{proc.stderr}")
-        else:
-            os.replace(tmp, so_path)  # atomic: concurrent builders agree
+    # the log lands before the library: a library found on disk has its log
+    log_path.write_text("\n".join(log))
+    if not failed:
+        os.replace(tmp, so_path)  # atomic: concurrent builds agree
     for obj in objs:
         obj.unlink(missing_ok=True)
-    log_path.write_text("\n".join(log))
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
 
@@ -146,15 +150,42 @@ def load_library() -> ctypes.CDLL:
                      flags=" ".join(NVCC_FLAGS),
                      sources=[str(s.relative_to(_CSRC.parent.parent))
                               for s in sources],
-                     log=log_path.read_text() if log_path.exists() else "")
+                     log=log_path.read_text())
         _lib = lib
         return lib
 
 
 def build_info() -> dict:
     """Where the library came from: path, whether this process compiled
-    it, seconds spent, nvcc flags, sources and the compiler's log."""
+    it, seconds spent, nvcc flags, sources and the compiler's log (kept
+    beside the library, so a library built earlier has it too)."""
     return dict(_info)
+
+
+def kernel_resources(log: str | None = None) -> dict:
+    """What ``ptxas -v`` said of each function in the build log (default:
+    this process's library): mangled name -> ``{"registers", "spill_stores",
+    "spill_loads"}`` (registers only for kernels, which ptxas reports
+    them for)."""
+    log = _info.get("log", "") if log is None else log
+    out: dict = {}
+    name = entry = None
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function '" in line:
+            name = entry = line.split("'")[1]
+        elif "Function properties for " in line:
+            name = line.rsplit(" ", 1)[1]
+        elif name and "bytes spill stores" in line:
+            fields = line.replace(",", "").split()
+            out.setdefault(name, {}).update(
+                spill_stores=int(fields[fields.index("spill") - 2]),
+                spill_loads=int(fields[-4]))
+        elif entry and line.startswith("ptxas info") and " registers" in line:
+            fields = line.split()
+            out.setdefault(entry, {})["registers"] = int(
+                fields[fields.index("registers,") - 1])
+    return out
 
 
 def check(code: int, what: str) -> None:

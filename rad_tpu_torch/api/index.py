@@ -63,12 +63,13 @@ class HNSWIndex:
         self._graph: Optional[HNSWGraph] = None
 
     # ------------------------------------------------------------------ add
-    def add(self, keys, vectors) -> None:
+    def add(self, keys, vectors, log: bool | str = False) -> None:
         """Queue fingerprints for graph construction: ``[N, ndim/32]``
         uint32 packed rows, ``[N, ndim]`` 0/1 bits, or ``[N, ndim/8]``
         uint8 ``np.packbits`` rows, with int64 user keys. Adding to a built
         or loaded graph folds its rows back in and rebuilds on the next
-        ``build()``."""
+        ``build()``. ``log`` (a flag or usearch's progress label) only
+        logs what was queued, as in the reference."""
         if self._graph is not None and not self._pending_fps:
             self._pending_fps.append(
                 np.ascontiguousarray(np.asarray(self._graph.packed)))
@@ -80,6 +81,9 @@ class HNSWIndex:
         self._pending_keys.append(keys)
         self._pending_fps.append(vectors)
         self._graph = None
+        if log:
+            logger.info("queued %d vectors (total pending %d)",
+                        len(keys), sum(len(k) for k in self._pending_keys))
 
     # ---------------------------------------------------------------- build
     def build(self, backend: str | None = None, **kwargs) -> HNSWGraph:

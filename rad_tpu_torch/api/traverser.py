@@ -141,18 +141,23 @@ class RADTraverser:
                     "device=%s)", self._device_engine.device)
 
     # ------------------------------------------------------------ lifecycle
-    def prime(self) -> None:
-        """Score all top-layer nodes and seed the frontier."""
+    def prime(self, **kwargs) -> None:
+        """Score all top-layer nodes and seed the frontier (keyword
+        arguments are accepted and unused, as in the reference)."""
         self._check_alive()
         if self._primed:
             return
         self._device_engine.prime()
         self._primed = True
 
-    def traverse(self, timeout: Optional[float] = None,
-                 n_to_score: Optional[int] = None, **kwargs) -> dict:
+    def traverse(self, n_workers: Optional[int] = None,
+                 timeout: Optional[float] = None,
+                 n_to_score: Optional[int] = None,
+                 poll_interval: float = 0.2, **kwargs) -> dict:
         """Run the sweep until timeout / n_to_score / frontier exhaustion;
-        engine options (``pipeline_depth``) pass through."""
+        engine options (``pipeline_depth``) pass through. The signature is
+        the reference's: ``n_workers`` and ``poll_interval`` steer its host
+        worker pool and are accepted and unused by the device engine."""
         self._check_alive()
         if not self._primed:
             raise RuntimeError("prime() must be called before traverse()")
@@ -171,7 +176,7 @@ class RADTraverser:
         self._monitor_stats = stats
         return stats
 
-    def shutdown(self) -> None:
+    def shutdown(self, **kwargs) -> None:
         if self._shutdown:
             return
         self._shutdown = True

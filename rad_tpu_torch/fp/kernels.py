@@ -20,6 +20,13 @@ bounds it on an H100):
   ``benchmarks/bench_kernel_variants.py``, instances of the 1-NN kernel
   (and one small kernel for the floor probe's ``unpack`` mode).
 
+``tanimoto_matrix``, ``tanimoto_nn`` and the probes take their
+intersections from the tensor cores (the 1-bit ``wgmma`` of
+``csrc/tanimoto_mma.cuh``, packed words in, exact counts out);
+``tanimoto_bucketmin`` still counts with AND + popcount. The results are
+the same bits either way. :func:`div_counts_mismatches` is the card-side
+self-check of the divide those kernels' exact epilogues run.
+
 Each public wrapper runs its ``*_plain`` twin for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises. ``<wrapper>.launches`` counts
 kernel launches (the twin never counts); the approximate epilogue counts in
@@ -49,12 +56,15 @@ __all__ = [
     "tanimoto_nn",
     "tanimoto_nn_plain",
     "default_n_tile",
+    "MATRIX_MAX_WORDS",
+    "NN_MAX_WORDS",
     "nn_floor",
     "nn_floor_plain",
     "nn_epilogue_probe",
     "nn_epilogue_probe_plain",
     "unpack_bitmajor",
     "exact_fp32_matmul",
+    "div_counts_mismatches",
 ]
 
 
@@ -189,6 +199,9 @@ def _launch(entry: str, q, db, q_pops, db_pops, *extra, out) -> None:
     _cuda.check(code, entry)
 
 
+MATRIX_MAX_WORDS = 1024    # kDivCheckedWords of csrc/tanimoto.cu
+
+
 def tanimoto_matrix(q: torch.Tensor, db: torch.Tensor,
                     q_pops: torch.Tensor | None = None,
                     db_pops: torch.Tensor | None = None) -> torch.Tensor:
@@ -198,6 +211,9 @@ def tanimoto_matrix(q: torch.Tensor, db: torch.Tensor,
         return tanimoto_matrix_plain(q, db, q_pops, db_pops)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if q.shape[1] > MATRIX_MAX_WORDS:
+        raise ValueError(f"the CUDA matrix kernel takes rows of up to "
+                         f"{MATRIX_MAX_WORDS} words (got {q.shape[1]})")
     out = torch.empty((q.shape[0], db.shape[0]), dtype=torch.float32,
                       device=q.device)
     _launch("rad_tanimoto_matrix", q, db, q_pops, db_pops, out=out)
@@ -244,6 +260,29 @@ tanimoto_bucketmin.launches = 0
 tanimoto_bucketmin.approx_launches = 0
 
 
+def div_counts_mismatches(device, max_union: int = 1 << 16) -> int:
+    """The self-check of the divide that the tensor-core kernels' exact
+    epilogues use (``div_counts`` in ``csrc/tanimoto.cu``: the in-range
+    instruction sequence of the IEEE divide, without its branches): the
+    number of pairs ``0 <= inter <= union <= max_union`` for which it
+    differs from ``__fdiv_rn`` in any bit, counted on the CUDA ``device``.
+    It must be 0; the default covers every pair of counts that fingerprints
+    of up to 32,768 bits can give, the range in which the kernels use it."""
+    from rad_tpu_torch import _cuda
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the check runs on a CUDA device, not {device}")
+    lib = _cuda.load_library()
+    out = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        code = lib.rad_div_counts_check(
+            int(max_union), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    _cuda.check(code, "rad_div_counts_check")
+    return int(out.item())
+
+
 # --- 1-NN over the whole db: tanimoto_nn and the A/B probes ---------------
 # Each epilogue reduces one int64 key per (query, db row) to one per query;
 # the key carries the tie rule (see csrc/tanimoto.cu). The kernel and the
@@ -254,6 +293,7 @@ _NN_MIN = (_NN_EXACT, _NN_NEWTON)
 _I64 = torch.iinfo(torch.int64)
 _LO32 = 0xFFFFFFFF
 _NN_PLAIN_BLOCK = 1 << 14   # db rows per step of the plain twins' scan
+NN_MAX_WORDS = 288         # 9 K chunks of 32 words: csrc/tanimoto.cu
 
 
 def default_n_tile(n: int) -> int:
@@ -333,6 +373,10 @@ def _nn_keys(q, db, q_pops, db_pops, epilogue: int, n_tile: int,
         return _nn_keys_plain(q, db, q_pops, db_pops, epilogue, n_tile)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if q.shape[1] > NN_MAX_WORDS:
+        raise ValueError(f"the CUDA 1-NN kernel keeps a query tile of up to "
+                         f"{NN_MAX_WORDS} words a row in shared memory "
+                         f"(got {q.shape[1]})")
     out = torch.full((q.shape[0],),
                      _I64.max if epilogue in _NN_MIN else _I64.min,
                      dtype=torch.int64, device=q.device)

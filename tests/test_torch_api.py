@@ -118,6 +118,69 @@ def test_traverser_views(library):
         t.prime()
 
 
+def _built(pkg, library, log=False):
+    keys, fps, _, _ = library
+    on_cpu = {"device": "cpu"} if pkg is rad_tpu_torch else {}
+    index = pkg.HNSWIndex(ndim=1024, connectivity=8, **on_cpu)
+    index.add(keys, fps, log=log)
+    index.build(**({} if pkg is rad_tpu_torch else {"backend": "exact"}))
+    return index
+
+
+@pytest.fixture(scope="module")
+def indexes(library):
+    return {pkg: _built(pkg, library) for pkg in (rad_tpu, rad_tpu_torch)}
+
+
+@pytest.mark.parametrize("log", ["Building HNSW", True])
+def test_add_takes_log_like_the_reference(library, indexes, log, caplog):
+    """RAD's notebook call ``hnsw.add(keys, fps, log="Building HNSW")``:
+    accepted by both packages, logs what was queued, and builds the graph
+    that ``log=False`` builds."""
+    for pkg in (rad_tpu, rad_tpu_torch):
+        with caplog.at_level("INFO", logger=pkg.__name__ + ".api.index"):
+            caplog.clear()
+            logged = _built(pkg, library, log=log)
+            assert any("queued 300 vectors" in r.getMessage()
+                       for r in caplog.records), pkg.__name__
+        for a, b in zip(logged.graph.neighbors, indexes[pkg].graph.neighbors):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    for a, b in zip(indexes[rad_tpu].graph.neighbors,
+                    indexes[rad_tpu_torch].graph.neighbors):
+        np.testing.assert_array_equal(np.asarray(a), b)
+
+
+@pytest.mark.parametrize("call", ["keywords", "positional", "all-keywords"])
+def test_traverse_takes_the_reference_signature(library, indexes, call):
+    """``traverse(n_workers, timeout, n_to_score, poll_interval)`` in the
+    reference's order (docs/MIGRATION.md calls ``traverse(n_workers=4,
+    n_to_score=...)``), ``prime(**kwargs)`` and ``shutdown(**kwargs)``:
+    both packages score the same molecules in the same order."""
+    _, _, _, table = library
+
+    def run(pkg):
+        t = pkg.create_local_traverser(
+            indexes[pkg], lambda s: table[f"SMILES_{s}"], n_score_threads=1,
+            batch_size=4)
+        t.prime(foo=1)
+        if call == "keywords":
+            stats = t.traverse(n_workers=4, n_to_score=80)
+        elif call == "positional":
+            stats = t.traverse(None, None, 80)
+        else:
+            stats = t.traverse(n_workers=2, timeout=60.0, n_to_score=80,
+                               poll_interval=0.05)
+        mols = t.get_molecules()
+        t.shutdown(foo=1)
+        t.shutdown()
+        return stats["n_scored"], mols
+
+    n_ref, ref = run(rad_tpu)
+    n, mols = run(rad_tpu_torch)
+    assert n >= 80 and n == n_ref
+    assert mols == ref
+
+
 def test_resolve_device_says_when_it_picks_the_cpu(monkeypatch):
     """The CPU runs only when named; with no card and no device the call
     raises and says how to ask for the CPU."""
@@ -169,6 +232,7 @@ def test_port_never_loads_jax():
         import rad_tpu_torch.bench, rad_tpu_torch.bench_kernel_variants
         import rad_tpu_torch.bench_scalar_probe, rad_tpu_torch.graph.adjpack
         import rad_tpu_torch.traverse.multi, rad_tpu_torch.traverse.spill
+        import rad_tpu_torch.bench_mma_rate
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "rad_tpu",
                                             "bench", "benchmarks"))

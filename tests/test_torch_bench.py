@@ -52,6 +52,19 @@ def test_entry_points_need_a_card(module, monkeypatch, capsys):
     assert "no CUDA device" in err and "{" not in out
 
 
+def test_mma_rate_needs_nvcc(monkeypatch, tmp_path):
+    """The rate probe is compiled where it runs: with no ``nvcc`` it raises
+    and measures nothing."""
+    from rad_tpu_torch import _cuda, bench_mma_rate
+    assert bench_mma_rate._SOURCE.exists()
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("RAD_TPU_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        bench_mma_rate.main()
+    assert _cuda.NVCC_FLAGS[:2] == ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+
 @pytest.mark.gpu
 def test_cuda_matmul_path_equals_exact_nn():
     if not torch.cuda.is_available():

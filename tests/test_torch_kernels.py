@@ -136,11 +136,149 @@ def test_exact_fp32_matmul_restores_flags():
             torch.backends.cudnn.allow_tf32) == before
 
 
+RAGGED_WORDS = [1, 6, 8, 32, 64]   # packed words a row (6: a 166-bit key set)
+
+
+def ragged_case(nq, nn, w, seed=0):
+    """``[nq, w]`` and ``[nn, w]`` uint32 rows that give a wrong
+    accumulator map no symmetric case to hide behind: random query rows, a
+    db with copies of the first and last query rows planted, an empty row
+    and an all-ones row, and one empty query row."""
+    rng = np.random.default_rng(seed + 1000 * w + nq + nn)
+
+    def draw(n):
+        bits = rng.random((n, w * 32)) < 0.15
+        return np.packbits(bits, axis=1, bitorder="little").view(np.uint32)
+
+    q, db = draw(nq), draw(nn)
+    db[min(3, nn - 1)] = q[0]
+    db[nn - 1] = q[nq - 1]
+    db[nn // 2] = 0
+    db[nn // 3] = 0xFFFFFFFF
+    if nq > 2:
+        q[nq // 2] = 0
+    return q, db
+
+
+def _pad_rows(a, multiple):
+    pad = -a.shape[0] % multiple
+    return np.concatenate([a, np.zeros((pad, a.shape[1]), a.dtype)])
+
+
+@pytest.mark.parametrize("w", RAGGED_WORDS)
+@pytest.mark.parametrize("nq,nn", [(1, 64), (65, 200), (130, 64)])
+def test_matrix_twin_matches_pallas_at_ragged_shapes(w, nq, nn):
+    """The twin that the CUDA kernel is held to, against the interpret-mode
+    Pallas kernel on the same rows padded with zero rows to its tiles."""
+    q, db = ragged_case(nq, nn, w)
+    ref = np.asarray(tanimoto_matrix_pallas(
+        jnp.asarray(_pad_rows(q, 8)), jnp.asarray(_pad_rows(db, 128)),
+        q_tile=8, n_tile=128, interpret=True))[:nq, :nn]
+    out = kernels.tanimoto_matrix(to_torch_packed(q, "cpu"),
+                                  to_torch_packed(db, "cpu"))
+    assert out.shape == (nq, nn)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(
+        out.numpy(), np.asarray(ref_swar_matrix(jnp.asarray(q),
+                                                jnp.asarray(db))))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda:0")
+
+
+@pytest.mark.gpu
+def test_cuda_div_counts_is_the_ieee_divide(cuda):
+    """Exhaustive: the kernels' branch-free divide gives the bits of
+    ``__fdiv_rn`` for every pair of counts in the range they use it."""
+    assert kernels.div_counts_mismatches(cuda) == 0
+
+
+def test_kernel_resources_reads_the_ptxas_log():
+    """``_cuda.kernel_resources`` on a log as ``nvcc -Xptxas=-v`` writes
+    it: registers of the kernels, spill bytes of every function."""
+    from rad_tpu_torch import _cuda
+    log = "\n".join([
+        "nvcc -c tanimoto.cu",
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function '_Z2nnILi0EEvPx' for "
+        "'sm_90a'",
+        "ptxas info    : Function properties for _Z2nnILi0EEvPx",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Function properties for _Z4slowf",
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 105 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_Z6bucketPi' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z6bucketPi",
+        "    16 bytes stack frame, 24 bytes spill stores, 28 bytes spill "
+        "loads",
+        "ptxas info    : Used 40 registers, used 1 barriers, 16 bytes "
+        "cumulative stack size, 17408 bytes smem",
+    ])
+    assert _cuda.kernel_resources(log) == {
+        "_Z2nnILi0EEvPx": dict(registers=105, spill_stores=0, spill_loads=0),
+        "_Z4slowf": dict(spill_stores=4, spill_loads=12),
+        "_Z6bucketPi": dict(registers=40, spill_stores=24, spill_loads=28),
+    }
+    assert _cuda.kernel_resources("") == {}
+
+
+def test_div_counts_check_needs_the_card():
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.div_counts_mismatches("cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", RAGGED_WORDS)
+@pytest.mark.parametrize("nq,nn", [(1, 64), (65, 200), (130, 64), (130, 201),
+                                   (64, 2500), (300, 129)])
+def test_cuda_matrix_equals_twin_at_ragged_shapes(cuda, w, nq, nn):
+    """Every (row, column) of the tensor-core kernel's accumulator map, at
+    Q and N off the 128-row tiles, even N (8-byte stores) and odd N (4-byte
+    stores), 16-byte staging (W % 4 == 0) and 4-byte staging."""
+    q, db = ragged_case(nq, nn, w)
+    tq, tdb = to_torch_packed(q, cuda), to_torch_packed(db, cuda)
+    before = kernels.tanimoto_matrix.launches
+    out = kernels.tanimoto_matrix(tq, tdb)
+    torch.cuda.synchronize()
+    assert kernels.tanimoto_matrix.launches == before + 1
+    assert torch.equal(out, kernels.tanimoto_matrix_plain(tq, tdb))
+    # rows that start off a 16-byte boundary (a slice of the same storage)
+    if nq > 1:
+        assert torch.equal(kernels.tanimoto_matrix(tq[1:], tdb[1:]),
+                           out[1:, 1:])
+
+
+@pytest.mark.gpu
+def test_cuda_matrix_at_the_widest_rows(cuda):
+    """``MATRIX_MAX_WORDS`` words a row, the edge of the range on which the
+    kernel's divide is checked, equal the twin; one word more raises and
+    launches nothing."""
+    w = kernels.MATRIX_MAX_WORDS
+    q, db = ragged_case(65, 200, w)
+    tq, tdb = to_torch_packed(q, cuda), to_torch_packed(db, cuda)
+    assert torch.equal(kernels.tanimoto_matrix(tq, tdb),
+                       kernels.tanimoto_matrix_plain(tq, tdb))
+    q, db = ragged_case(2, 64, w + 1)
+    before = kernels.tanimoto_matrix.launches
+    with pytest.raises(ValueError, match="words"):
+        kernels.tanimoto_matrix(to_torch_packed(q, cuda),
+                                to_torch_packed(db, cuda))
+    assert kernels.tanimoto_matrix.launches == before
+
+
+def test_widest_rows_on_the_cpu():
+    """Rows wider than the CUDA kernel takes are the twin's on the CPU."""
+    w = kernels.MATRIX_MAX_WORDS + 1
+    q, db = ragged_case(3, 5, w)
+    out = kernels.tanimoto_matrix(to_torch_packed(q, "cpu"),
+                                  to_torch_packed(db, "cpu"))
+    np.testing.assert_array_equal(
+        out.numpy(), np.asarray(ref_swar_matrix(jnp.asarray(q),
+                                                jnp.asarray(db))))
 
 
 @pytest.mark.gpu

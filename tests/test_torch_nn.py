@@ -29,6 +29,7 @@ from rad_tpu.fp.tanimoto import tanimoto_matrix as ref_matrix
 from rad_tpu_torch import bench_kernel_variants as variants
 from rad_tpu_torch.fp import kernels
 from rad_tpu_torch.fp.pack import to_torch_packed
+from test_torch_kernels import RAGGED_WORDS, _pad_rows, ragged_case
 
 
 @pytest.fixture(scope="module", params=[256, 1024])
@@ -170,11 +171,95 @@ def test_probe_arguments(probe_data):
         variants.make_epilogue_probe(128, 256, mode="exact")
 
 
+@pytest.mark.parametrize("w", RAGGED_WORDS)
+@pytest.mark.parametrize("nq,nn", [(1, 128), (65, 384), (130, 640)])
+def test_nn_twin_matches_pallas_at_ragged_shapes(w, nq, nn):
+    """The exact twin that the CUDA kernel is held to, against the
+    interpret-mode Pallas kernel with the query rows padded to its tile:
+    distances and ids array-equal, planted copies found at distance 0."""
+    q, db = ragged_case(nq, nn, w)
+    rd, ri = tanimoto_nn_pallas(jnp.asarray(_pad_rows(q, 8)), jnp.asarray(db),
+                                q_tile=8, n_tile=128, interpret=True)
+    d, i = kernels.tanimoto_nn(*_cpu(q, db), n_tile=128)
+    np.testing.assert_array_equal(d.numpy(), np.asarray(rd)[:nq])
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri)[:nq])
+    assert d[0] == 0 and d[nq - 1] == 0
+
+
+def test_widest_rows_on_the_cpu():
+    """Rows wider than the CUDA kernel's resident query tile
+    (``NN_MAX_WORDS``) are the twin's on the CPU, and agree with the matrix
+    twin's row minima."""
+    w = kernels.NN_MAX_WORDS + 1
+    q, db = _cpu(*ragged_case(5, 128, w))
+    d, i = kernels.tanimoto_nn(q, db, n_tile=64)
+    full = kernels.tanimoto_matrix(q, db)
+    assert torch.equal(d, full.amin(dim=1))
+    assert torch.equal(i.long(), full.argmin(dim=1))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda:0")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", RAGGED_WORDS)
+@pytest.mark.parametrize("nq,nn", [(1, 128), (65, 384), (130, 4224),
+                                   (300, 64 * 1031)])
+def test_cuda_nn_every_epilogue_at_ragged_shapes(cuda, w, nq, nn):
+    """All five epilogues of the tensor-core 1-NN kernel against their
+    twins with Q and N off the 128-row tiles (N a multiple of n_tile = 64
+    only), one db run a block and many, 16-byte and 4-byte staging."""
+    q, db = ragged_case(nq, nn, w)
+    tq, tdb = to_torch_packed(q, cuda), to_torch_packed(db, cuda)
+    d, i = kernels.tanimoto_nn(tq, tdb, n_tile=64)
+    torch.cuda.synchronize()
+    pd, pi = kernels.tanimoto_nn_plain(tq, tdb, n_tile=64)
+    assert torch.equal(d, pd) and torch.equal(i, pi)
+    assert float(d[0]) == 0 and float(d[nq - 1]) == 0
+    assert torch.equal(kernels.nn_floor(tq, tdb, 1, 64),
+                       kernels.nn_floor_plain(tq, tdb, 1, 64))
+    assert torch.equal(kernels.nn_epilogue_probe(tq, tdb, 64, "exact-pk"),
+                       kernels.nn_epilogue_probe_plain(tq, tdb, 64,
+                                                       "exact-pk"))
+    got = kernels.nn_epilogue_probe(tq, tdb, 64, "newton")
+    want = kernels.nn_epilogue_probe_plain(tq, tdb, 64, "newton")
+    assert float((got - want).abs().max()) <= 1e-6
+    fd, fi = kernels.tanimoto_nn(tq, tdb, n_tile=64, approx=True)
+    pfd, _ = kernels.tanimoto_nn_plain(tq, tdb, n_tile=64, approx=True)
+    assert float((fd - pfd).abs().max()) <= 2.0 ** -12
+    true = kernels.tanimoto_matrix_plain(tq, tdb)
+    chosen = true.gather(1, fi.long()[:, None])[:, 0]
+    assert float((chosen - true.amin(dim=1)).abs().max()) <= 2.0 ** -12
+
+
+@pytest.mark.gpu
+def test_cuda_nn_at_the_widest_rows(cuda):
+    """``NN_MAX_WORDS`` words a row (nine resident query chunks, the
+    kernel's largest shared-memory request) launch and equal the twins; one
+    word more raises and launches nothing."""
+    w = kernels.NN_MAX_WORDS
+    q, db = ragged_case(130, 640, w)
+    tq, tdb = to_torch_packed(q, cuda), to_torch_packed(db, cuda)
+    d, i = kernels.tanimoto_nn(tq, tdb, n_tile=64)
+    torch.cuda.synchronize()
+    pd, pi = kernels.tanimoto_nn_plain(tq, tdb, n_tile=64)
+    assert torch.equal(d, pd) and torch.equal(i, pi)
+    assert float(d[0]) == 0 and float(d[-1]) == 0
+    assert torch.equal(kernels.nn_floor(tq, tdb, 1, 64),
+                       kernels.nn_floor_plain(tq, tdb, 1, 64))
+    fd, _ = kernels.tanimoto_nn(tq, tdb, n_tile=64, approx=True)
+    pfd, _ = kernels.tanimoto_nn_plain(tq, tdb, n_tile=64, approx=True)
+    assert float((fd - pfd).abs().max()) <= 2.0 ** -12
+    q, db = ragged_case(2, 64, w + 1)
+    before = kernels.tanimoto_nn.launches
+    with pytest.raises(ValueError, match="words"):
+        kernels.tanimoto_nn(to_torch_packed(q, cuda),
+                            to_torch_packed(db, cuda), n_tile=64)
+    assert kernels.tanimoto_nn.launches == before
 
 
 @pytest.mark.gpu
