@@ -7,9 +7,9 @@ Phases, one status line each (plus detail lines):
 
 1. device: ``nvidia-smi`` name and power limit, torch/CUDA versions, and
    the kernels built by nvcc for sm_90a from ``rad_tpu_torch/csrc``, with
-   the registers and spill bytes of every ``tanimoto_nn_kernel`` and
-   ``tanimoto_matrix_kernel`` instance from the ``ptxas -v`` log (a spill
-   fails the run);
+   the registers and spill bytes of every ``tanimoto_nn_kernel``,
+   ``tanimoto_matrix_kernel`` and ``tanimoto_bucketmin_kernel`` instance
+   from the ``ptxas -v`` log (a spill fails the run);
 2. each CUDA kernel against its plain-torch twin on the card, at the
    shapes its path gives it (1024-bit fingerprints; 2,048 candidates over
    the 1M graph's 1,000,000 ids and 1,066,610 rows): array-equal (the
@@ -18,12 +18,18 @@ Phases, one status line each (plus detail lines):
    timed with CUDA events, beside the kernel's bound on the card (the
    larger of its 1-bit tensor-core operations over 15,832 TOP/s and its
    bytes over 3.35 TB/s) and, for the Tanimoto kernels, one bf16
-   ``torch.mm`` of the unpacked bits (the intersections alone);
-   ``tanimoto_matrix`` also off its 128-row tiles (Q = 1, 65, 130; N = 64,
-   200, 201; rows of 1, 6, 8, 32 and 64 words) and, timed through the
-   wrapper and again replayed from a CUDA graph (the kernel without the
-   launch path), at the skewed shapes the build gives it (256 x 4096,
-   64 x 19,536), array-equal each;
+   ``torch.mm`` of the unpacked bits (the intersections alone); the bucket
+   kernel (4096 x 8192, bucket 64) also replayed from a CUDA graph (the
+   kernel without the launch path), and off its 128-row tiles: Q = 1, 65,
+   130, 300; N = 64, 192, 640; rows of 1, 6, 8, 32, 64 and 1,025 words
+   (one past the range of the branch-free divide: the IEEE-divide
+   instance); every bucket of 1, 2, 4, 8, 64 and 128 rows that divides N;
+   rows on and off a 16-byte boundary; both epilogues, each case held to
+   the bars above; ``tanimoto_matrix`` also off its 128-row tiles (Q = 1,
+   65, 130; N = 64, 200, 201; rows of 1, 6, 8, 32, 64 and 1,025 words) and,
+   timed through the wrapper and again replayed from a CUDA graph, at the
+   skewed shapes the build gives it (256 x 4096, 64 x 19,536), array-equal
+   each;
    and the divide of the tensor-core kernels' epilogues compared with
    ``__fdiv_rn`` on every pair of counts it can meet;
 3. a 16,384-row library built with ``build_hnsw_exact`` on the card and on
@@ -251,7 +257,8 @@ def phase_device() -> str:
     for line in info["log"].splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"    ptxas: {line.strip()}")
-    found = {"tanimoto_nn_kernel": 0, "tanimoto_matrix_kernel": 0}
+    found = {"tanimoto_nn_kernel": 0, "tanimoto_matrix_kernel": 0,
+             "tanimoto_bucketmin_kernel": 0}
     for name, res in sorted(_cuda.kernel_resources().items()):
         kernel = next((k for k in found if k in name), None)
         if kernel is None or "registers" not in res:
@@ -261,9 +268,9 @@ def phase_device() -> str:
         print(f"[1 build] {name}: {res['registers']} registers, {spill} "
               f"spill bytes", flush=True)
         check(spill == 0, f"{name} spills {spill} bytes")
-    check(found == {"tanimoto_nn_kernel": 5, "tanimoto_matrix_kernel": 1},
-          f"ptxas log names {found}, not 5 tanimoto_nn_kernel instances and "
-          f"tanimoto_matrix_kernel")
+    want = {"tanimoto_nn_kernel": 5, "tanimoto_matrix_kernel": 2,
+            "tanimoto_bucketmin_kernel": 3}
+    check(found == want, f"ptxas log names instances {found}, not {want}")
     return smi
 
 
@@ -302,9 +309,11 @@ def _library_ms(q, db, iters: int = 10) -> float:
 
 
 def _fmt(r: dict, library: str = "bf16 torch.mm") -> str:
-    lib = r.get("library_ms")
-    return (f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms; bound "
-            f"{r['bound_ms']:.4g} ms by {r['bound_by']}"
+    lib, graph = r.get("library_ms"), r.get("graph_ms")
+    return (f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms"
+            + (f"; replayed from a CUDA graph {graph:.4f} ms"
+               if graph is not None else "")
+            + f"; bound {r['bound_ms']:.4g} ms by {r['bound_by']}"
             + (f"; {library} {lib:.4f} ms" if lib is not None else ""))
 
 
@@ -326,6 +335,8 @@ def phase_kernels(dev) -> dict:
     bound = _tanimoto_bound(4096, 8192, 32, 4096 * 128 * 4)
     results["tanimoto_bucketmin"] = r = dict(
         max_abs_err=float(err), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        graph_ms=_graph_ms(
+            lambda: kernels.tanimoto_bucketmin(q, db, 64, qp, dp)),
         **bound)
     print(f"[2 kernels] tanimoto_bucketmin 4096x8192 bucket 64: array-equal "
           f"to plain; {_fmt(r)}", flush=True)
@@ -349,12 +360,16 @@ def phase_kernels(dev) -> dict:
                                                  approx=True))
     results["tanimoto_bucketmin_approx"] = r = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        graph_ms=_graph_ms(
+            lambda: kernels.tanimoto_bucketmin(q, db, 64, qp, dp,
+                                               approx=True)),
         **bound)
     print(f"[2 kernels] tanimoto_bucketmin approx=True 4096x8192 bucket 64: "
           f"decoded distances within {err:.3g} of plain (bound 2^-14), "
           f"chosen entries' true distances within {chosen:.3g} (bound "
           f"1e-6), {int((gid != pgid).sum())} of {gid.numel()} winners "
           f"differ; {_fmt(r)}", flush=True)
+    _bucket_shapes(dev)
 
     q = to_torch_packed(random_fingerprints(8192, 1024, 0.12, seed=3), dev)
     db = to_torch_packed(random_fingerprints(8192, 1024, 0.12, seed=4), dev)
@@ -381,6 +396,11 @@ def phase_kernels(dev) -> dict:
 
 
 RAGGED_WORDS = (1, 6, 8, 32, 64)   # packed words a row; 6: a 166-bit key set
+# one word past the range on which the exact epilogues' branch-free divide
+# is checked: the kernels' IEEE-divide instances
+WIDE_WORDS = kernels.DIV_CHECKED_WORDS + 1
+BUCKET_QS, BUCKET_NS = (1, 65, 130, 300), (64, 192, 640)
+BUCKETS = (1, 2, 4, 8, 64, 128)
 
 
 def _ragged_case(nq: int, nn: int, w: int, dev):
@@ -399,6 +419,65 @@ def _ragged_case(nq: int, nn: int, w: int, dev):
     return to_torch_packed(q, dev), to_torch_packed(db, dev)
 
 
+def _off16(x: torch.Tensor) -> torch.Tensor:
+    """The same rows at a storage offset of one word: rows that start off
+    a 16-byte boundary whatever W (the kernels' 4-byte staging)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:] = x.reshape(-1)
+    return buf[1:].view(x.shape)
+
+
+def _bucket_shapes(dev) -> None:
+    """tanimoto_bucketmin off its 128-row tiles, at every bucket size its
+    epilogue reduces differently, rows on and off a 16-byte boundary, both
+    epilogues: exact keys array-equal to the twin's; approximate keys
+    decoded within 2^-14 of the twin's, the chosen entries' true distances
+    within 1e-6."""
+    t0 = time.perf_counter()
+    cases, worst_d, worst_true = 0, 0.0, 0.0
+    for w in RAGGED_WORDS + (WIDE_WORDS,):
+        for nq in BUCKET_QS:
+            for nn in BUCKET_NS:
+                q, db = _ragged_case(nq, nn, w, dev)
+                true = kernels.tanimoto_matrix_plain(q, db)
+                for bucket in (b for b in BUCKETS if nn % b == 0):
+                    want = kernels.tanimoto_bucketmin_plain(q, db, bucket)
+                    pd, pgid = kernels.decode_bucket_keys(
+                        kernels.tanimoto_bucketmin_plain(q, db, bucket,
+                                                         approx=True), bucket)
+                    for off, (a, b) in enumerate(((q, db),
+                                                  (_off16(q), _off16(db)))):
+                        keys = kernels.tanimoto_bucketmin(a, b, bucket)
+                        approx = kernels.tanimoto_bucketmin(a, b, bucket,
+                                                            approx=True)
+                        torch.cuda.synchronize()
+                        where = (f"{nq}x{nn}, {w} words, bucket {bucket}"
+                                 + (", rows off 16 B" if off else ""))
+                        check(torch.equal(keys, want),
+                              f"tanimoto_bucketmin {where} != plain (max key "
+                              f"diff {_max_abs_err(keys, want)})")
+                        d, gid = kernels.decode_bucket_keys(approx, bucket)
+                        err = float((d - pd).abs().max())
+                        chosen = float((true.gather(1, gid.long())
+                                        - true.gather(1, pgid.long()))
+                                       .abs().max())
+                        check(err <= 2.0 ** -14 and chosen <= 1e-6,
+                              f"approx tanimoto_bucketmin {where}: decoded "
+                              f"distances differ by {err} (bound 2^-14), "
+                              f"chosen entries' true distances by {chosen} "
+                              f"(bound 1e-6)")
+                        worst_d, worst_true = (max(worst_d, err),
+                                               max(worst_true, chosen))
+                        cases += 1
+    print(f"[2 kernels] tanimoto_bucketmin ragged: {cases} cases (Q "
+          f"{BUCKET_QS}, N {BUCKET_NS}, words "
+          f"{RAGGED_WORDS + (WIDE_WORDS,)}, buckets {BUCKETS} dividing N, "
+          f"rows on and off 16 B): exact array-equal to plain; approx "
+          f"decoded within {worst_d:.3g} (bound 2^-14), chosen entries' true "
+          f"distances within {worst_true:.3g} (bound 1e-6); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def _matrix_shapes(dev) -> None:
     """tanimoto_matrix off its 128-row tiles (Q, N not multiples of the
     tile; N odd, where rows start off an 8-byte boundary; W from 1 word to
@@ -410,7 +489,7 @@ def _matrix_shapes(dev) -> None:
     print("[2 kernels] div_counts: the bits of __fdiv_rn for every pair of "
           "counts 0 <= inter <= union <= 65,536", flush=True)
     shapes = ((1, 64), (65, 200), (130, 64), (130, 201))
-    for w in RAGGED_WORDS:
+    for w in RAGGED_WORDS + (WIDE_WORDS,):
         for nq, nn in shapes:
             q, db = _ragged_case(nq, nn, w, dev)
             out = kernels.tanimoto_matrix(q, db)
@@ -421,7 +500,7 @@ def _matrix_shapes(dev) -> None:
                   f"err {_max_abs_err(out, plain)})")
     print(f"[2 kernels] tanimoto_matrix ragged: array-equal to plain at "
           f"{', '.join(f'{a}x{b}' for a, b in shapes)}, words "
-          f"{RAGGED_WORDS}", flush=True)
+          f"{RAGGED_WORDS + (WIDE_WORDS,)}", flush=True)
     for nq, nn in ((256, 4096), (64, 19536)):
         q = to_torch_packed(random_fingerprints(nq, 1024, 0.12, seed=5), dev)
         db = to_torch_packed(random_fingerprints(nn, 1024, 0.12, seed=6), dev)

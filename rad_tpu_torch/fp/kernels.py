@@ -20,12 +20,12 @@ bounds it on an H100):
   ``benchmarks/bench_kernel_variants.py``, instances of the 1-NN kernel
   (and one small kernel for the floor probe's ``unpack`` mode).
 
-``tanimoto_matrix``, ``tanimoto_nn`` and the probes take their
-intersections from the tensor cores (the 1-bit ``wgmma`` of
-``csrc/tanimoto_mma.cuh``, packed words in, exact counts out);
-``tanimoto_bucketmin`` still counts with AND + popcount. The results are
-the same bits either way. :func:`div_counts_mismatches` is the card-side
-self-check of the divide those kernels' exact epilogues run.
+Every kernel here except the unpack probe takes its intersections from the
+tensor cores (the 1-bit ``wgmma`` of ``csrc/tanimoto_mma.cuh``, packed
+words in, exact counts out) and runs its epilogue on the accumulators.
+:func:`div_counts_mismatches` is the card-side self-check of the divide
+their exact epilogues run for rows of up to :data:`DIV_CHECKED_WORDS`
+words (wider rows take the IEEE divide: the same bits).
 
 Each public wrapper runs its ``*_plain`` twin for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises. ``<wrapper>.launches`` counts
@@ -56,7 +56,8 @@ __all__ = [
     "tanimoto_nn",
     "tanimoto_nn_plain",
     "default_n_tile",
-    "MATRIX_MAX_WORDS",
+    "DIV_CHECKED_WORDS",
+    "BUCKET_MAX",
     "NN_MAX_WORDS",
     "nn_floor",
     "nn_floor_plain",
@@ -159,10 +160,22 @@ def decode_bucket_keys(keys: torch.Tensor, bucket: int):
     return 1.0 - sim, col + local
 
 
+DIV_CHECKED_WORDS = 1024   # kDivCheckedWords of csrc/tanimoto.cu
+BUCKET_MAX = 128           # the CUDA bucket kernel's db tile (columns)
+
+
 def _check_bucket(n: int, bucket: int) -> None:
     if bucket <= 0 or bucket & (bucket - 1) or n % bucket:
         raise ValueError(f"bucket={bucket} must be a power of two dividing "
                          f"the db rows ({n})")
+
+
+def _check_bucket_kernel(bucket: int) -> None:
+    """What the CUDA bucket kernel takes beyond :func:`_check_bucket`: a
+    bucket lies inside one of its 128-column db tiles."""
+    if bucket > BUCKET_MAX:
+        raise ValueError(f"the CUDA bucket kernel takes buckets of up to "
+                         f"{BUCKET_MAX} db rows (bucket={bucket})")
 
 
 def _check_inputs(q, db, q_pops, db_pops):
@@ -199,9 +212,6 @@ def _launch(entry: str, q, db, q_pops, db_pops, *extra, out) -> None:
     _cuda.check(code, entry)
 
 
-MATRIX_MAX_WORDS = 1024    # kDivCheckedWords of csrc/tanimoto.cu
-
-
 def tanimoto_matrix(q: torch.Tensor, db: torch.Tensor,
                     q_pops: torch.Tensor | None = None,
                     db_pops: torch.Tensor | None = None) -> torch.Tensor:
@@ -211,9 +221,6 @@ def tanimoto_matrix(q: torch.Tensor, db: torch.Tensor,
         return tanimoto_matrix_plain(q, db, q_pops, db_pops)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if q.shape[1] > MATRIX_MAX_WORDS:
-        raise ValueError(f"the CUDA matrix kernel takes rows of up to "
-                         f"{MATRIX_MAX_WORDS} words (got {q.shape[1]})")
     out = torch.empty((q.shape[0], db.shape[0]), dtype=torch.float32,
                       device=q.device)
     _launch("rad_tanimoto_matrix", q, db, q_pops, db_pops, out=out)
@@ -233,7 +240,9 @@ def tanimoto_bucketmin(q: torch.Tensor, db: torch.Tensor, bucket: int = 64,
 
     ``approx=True`` swaps the exact f32 divide for the approximate
     reciprocal (the reference's ``approx=True``): winners can differ among
-    near-ties, and decoded distances by a few ulp."""
+    near-ties, and decoded distances by a few ulp. ``bucket`` is a power
+    of two dividing N; the CUDA kernel takes buckets of up to
+    :data:`BUCKET_MAX` rows and rows of any width."""
     _check_inputs(q, db, q_pops, db_pops)
     _check_bucket(db.shape[0], bucket)
     if q.device.type == "cpu":
@@ -241,10 +250,7 @@ def tanimoto_bucketmin(q: torch.Tensor, db: torch.Tensor, bucket: int = 64,
                                         approx)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if bucket > 64 or db.shape[0] % 64:
-        raise ValueError(f"the CUDA bucket kernel needs bucket <= 64 and db "
-                         f"rows % 64 == 0 (bucket={bucket}, "
-                         f"rows={db.shape[0]})")
+    _check_bucket_kernel(bucket)
     out = torch.empty((q.shape[0], db.shape[0] // bucket),
                       dtype=torch.int32, device=q.device)
     _launch("rad_tanimoto_bucketmin", q, db, q_pops, db_pops, bucket,

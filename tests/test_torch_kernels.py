@@ -9,7 +9,9 @@ should XLA's CPU code reorder. The approximate-reciprocal bucket epilogue
 is held to the 2e-3 bounds of tests/test_kernels.py: the interpret-mode
 Pallas kernel lowers its approximate reciprocal through bfloat16, the
 twin takes the f32 reciprocal. The ``gpu`` tests compare each CUDA kernel
-with its twin on the card and skip without one.
+with its twin on the card and skip without one; the ragged cases (rows of
+1 to 1,025 words, Q and N off the 128-row tiles, every bucket size) hold
+the twins to the interpret-mode Pallas kernels on the CPU first.
 """
 
 import numpy as np
@@ -254,31 +256,123 @@ def test_cuda_matrix_equals_twin_at_ragged_shapes(cuda, w, nq, nn):
 
 @pytest.mark.gpu
 def test_cuda_matrix_at_the_widest_rows(cuda):
-    """``MATRIX_MAX_WORDS`` words a row, the edge of the range on which the
-    kernel's divide is checked, equal the twin; one word more raises and
-    launches nothing."""
-    w = kernels.MATRIX_MAX_WORDS
-    q, db = ragged_case(65, 200, w)
-    tq, tdb = to_torch_packed(q, cuda), to_torch_packed(db, cuda)
-    assert torch.equal(kernels.tanimoto_matrix(tq, tdb),
-                       kernels.tanimoto_matrix_plain(tq, tdb))
-    q, db = ragged_case(2, 64, w + 1)
-    before = kernels.tanimoto_matrix.launches
-    with pytest.raises(ValueError, match="words"):
-        kernels.tanimoto_matrix(to_torch_packed(q, cuda),
-                                to_torch_packed(db, cuda))
-    assert kernels.tanimoto_matrix.launches == before
+    """``DIV_CHECKED_WORDS`` words a row, the edge of the range on which the
+    kernel's branch-free divide is checked, and one word more, where the
+    kernel takes the IEEE divide: both equal the twin."""
+    for w in (kernels.DIV_CHECKED_WORDS, kernels.DIV_CHECKED_WORDS + 1):
+        q, db = ragged_case(65, 200, w)
+        tq, tdb = to_torch_packed(q, cuda), to_torch_packed(db, cuda)
+        before = kernels.tanimoto_matrix.launches
+        out = kernels.tanimoto_matrix(tq, tdb)
+        torch.cuda.synchronize()
+        assert kernels.tanimoto_matrix.launches == before + 1
+        assert torch.equal(out, kernels.tanimoto_matrix_plain(tq, tdb)), w
 
 
 def test_widest_rows_on_the_cpu():
-    """Rows wider than the CUDA kernel takes are the twin's on the CPU."""
-    w = kernels.MATRIX_MAX_WORDS + 1
+    """Rows wider than the divide's checked range are the twin's on the
+    CPU, equal to the reference's distances."""
+    w = kernels.DIV_CHECKED_WORDS + 1
     q, db = ragged_case(3, 5, w)
     out = kernels.tanimoto_matrix(to_torch_packed(q, "cpu"),
                                   to_torch_packed(db, "cpu"))
     np.testing.assert_array_equal(
         out.numpy(), np.asarray(ref_swar_matrix(jnp.asarray(q),
                                                 jnp.asarray(db))))
+
+
+# The bucket kernel's ragged cases: W from one word to one past the divide's
+# checked range (the IEEE-divide instance), Q and N off the 128-row tiles
+# (N % 128 != 0 at 64 and 192), every bucket size the kernel reduces
+# differently (a pair, a lane pair, the quad, blocks of 8 folded in the
+# lane, the whole tile).
+BUCKET_WORDS = RAGGED_WORDS + [kernels.DIV_CHECKED_WORDS + 1]
+BUCKET_QS = (1, 65, 130, 300)
+BUCKET_NS = (64, 192, 640)
+BUCKETS = (1, 2, 4, 8, 64, 128)
+
+
+@pytest.mark.parametrize("w,nq,nn,bucket", [
+    (1, 1, 64, 1), (1, 300, 640, 128), (6, 65, 192, 2), (6, 130, 640, 64),
+    (8, 130, 64, 4), (8, 1, 192, 64), (32, 300, 192, 8), (32, 65, 640, 1),
+    (64, 65, 64, 64), (64, 130, 640, 128), (1025, 65, 192, 4),
+    (1025, 1, 64, 64)])
+def test_bucket_twin_matches_pallas_at_ragged_shapes(w, nq, nn, bucket):
+    """The twin that the CUDA bucket kernel is held to, against the
+    interpret-mode Pallas kernel (one db tile of N rows; queries padded
+    with zero rows to a multiple of 8), at the ragged cases of the
+    kernel's tests."""
+    q, db = ragged_case(nq, nn, w)
+    qp = _pad_rows(q, 8)
+    ref = np.asarray(tanimoto_bucketmin_pallas(
+        jnp.asarray(qp), jnp.asarray(db), bucket=bucket, q_tile=qp.shape[0],
+        n_tile=nn, interpret=True))[:nq]
+    out = kernels.tanimoto_bucketmin(to_torch_packed(q, "cpu"),
+                                     to_torch_packed(db, "cpu"), bucket)
+    assert out.shape == (nq, nn // bucket)
+    np.testing.assert_array_equal(out.numpy(), ref,
+                                  err_msg=f"w={w} {nq}x{nn} b={bucket}")
+
+
+def test_bucket_wrapper_rules_on_the_cpu():
+    """The twin takes every power-of-two bucket that divides N (256 too);
+    the card's kernel takes buckets of up to ``BUCKET_MAX`` = 128 (its db
+    tile) and any W, and refuses larger buckets before it allocates or
+    launches anything."""
+    q, db = ragged_case(3, 256, 6)
+    tq, tdb = to_torch_packed(q, "cpu"), to_torch_packed(db, "cpu")
+    assert kernels.tanimoto_bucketmin(tq, tdb, 256).shape == (3, 1)
+    for bucket in (3, 48, 512):
+        with pytest.raises(ValueError, match="power of two"):
+            kernels.tanimoto_bucketmin(tq, tdb, bucket)
+    assert kernels.BUCKET_MAX == 128
+    for bucket in (1, 2, 64, 128):
+        kernels._check_bucket_kernel(bucket)
+    with pytest.raises(ValueError, match="up to 128"):
+        kernels._check_bucket_kernel(256)
+
+
+def _off16(x: torch.Tensor) -> torch.Tensor:
+    """The same rows at a storage offset of one word: rows that start off
+    a 16-byte boundary whatever W (the kernel's 4-byte staging)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:] = x.reshape(-1)
+    return buf[1:].view(x.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", BUCKET_WORDS)
+@pytest.mark.parametrize("nq", BUCKET_QS)
+@pytest.mark.parametrize("nn", BUCKET_NS)
+def test_cuda_bucket_equals_twin_at_ragged_shapes(cuda, w, nq, nn):
+    """Every bucket size that divides N, both epilogues, rows on and off a
+    16-byte boundary: exact keys array-equal to the twin; approximate keys
+    decoded within 2^-14 of the twin's, their entries' true distances
+    within 1e-6."""
+    q, db = ragged_case(nq, nn, w)
+    tq, tdb = to_torch_packed(q, cuda), to_torch_packed(db, cuda)
+    true = kernels.tanimoto_matrix_plain(tq, tdb)
+    before = (kernels.tanimoto_bucketmin.launches,
+              kernels.tanimoto_bucketmin.approx_launches)
+    calls = 0
+    for bucket in (b for b in BUCKETS if nn % b == 0):
+        want = kernels.tanimoto_bucketmin_plain(tq, tdb, bucket)
+        want_a = kernels.tanimoto_bucketmin_plain(tq, tdb, bucket,
+                                                  approx=True)
+        pd, pgid = kernels.decode_bucket_keys(want_a, bucket)
+        for a, b in ((tq, tdb), (_off16(tq), _off16(tdb))):
+            keys = kernels.tanimoto_bucketmin(a, b, bucket)
+            torch.cuda.synchronize()
+            assert torch.equal(keys, want), (bucket, a.data_ptr() % 16)
+            d, gid = kernels.decode_bucket_keys(
+                kernels.tanimoto_bucketmin(a, b, bucket, approx=True), bucket)
+            assert float((d - pd).abs().max()) <= 2.0 ** -14, bucket
+            diff = true.gather(1, gid.long()) - true.gather(1, pgid.long())
+            assert float(diff.abs().max()) <= 1e-6, bucket
+            calls += 1
+    assert (kernels.tanimoto_bucketmin.launches,
+            kernels.tanimoto_bucketmin.approx_launches) == (
+        before[0] + calls, before[1] + calls)
 
 
 @pytest.mark.gpu
