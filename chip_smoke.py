@@ -7,8 +7,9 @@ Phases, one status line each (plus detail lines):
 
 1. device: ``nvidia-smi`` name and power limit, torch/CUDA versions, and
    the kernels built by nvcc for sm_90a from ``rad_tpu_torch/csrc``, with
-   the registers and spill bytes of every ``tanimoto_nn_kernel``,
-   ``tanimoto_matrix_kernel`` and ``tanimoto_bucketmin_kernel`` instance
+   the registers and spill bytes of every instance of the Tanimoto
+   kernels (``tanimoto_nn_kernel``, ``tanimoto_nn_wide_kernel``,
+   ``tanimoto_matrix_kernel``, ``tanimoto_bucketmin_kernel``) and of K1/K2
    from the ``ptxas -v`` log (a spill fails the run);
 2. each CUDA kernel against its plain-torch twin on the card, at the
    shapes its path gives it (1024-bit fingerprints; 2,048 candidates over
@@ -31,7 +32,15 @@ Phases, one status line each (plus detail lines):
    skewed shapes the build gives it (256 x 4096, 64 x 19,536), array-equal
    each;
    and the divide of the tensor-core kernels' epilogues compared with
-   ``__fdiv_rn`` on every pair of counts it can meet;
+   ``__fdiv_rn`` on every pair of counts it can meet; K1/K2 also with
+   their device time (K1 replayed from a CUDA graph, K2 from the
+   profiler's kernel time on fresh tables) and the host's microseconds a
+   call (``rad_tpu_torch.bench_candidates``), then at K = 1, 1,023, 1,025,
+   4,097, 8,192, 8,193 (the first whose dedup table leaves shared memory)
+   and 32,768, each random, with a narrow ``to_score``, one id repeated,
+   ids ``n - 1``, ids and rows out of range, every candidate invalid in
+   phase B and an empty ``to_score``: every output and table array-equal
+   to the twins, twice in a row;
 3. a 16,384-row library built with ``build_hnsw_exact`` on the card and on
    the CPU (twins): edge-identical on every layer; then the same traversal
    on both: identical scoring order;
@@ -65,7 +74,9 @@ Phases, one status line each (plus detail lines):
    1,048,576 rows x 1024 bits (``random_fingerprints``, density 0.1,
    seed 0; the queries drawn with seed 1, not from the library), after a
    ragged case (130 x 4,224, rows of 8 and 6 words, every epilogue; and
-   rows of 288 words, the widest the kernel takes): (a)
+   rows of 288, 289 and 1,025 words: the widest resident query tile, the
+   wide instance, the IEEE divide) and the wide instance timed at 2048 x
+   65,536 x 1,025 words against its twin: (a)
    ``tanimoto_nn`` array-equal to its twin and to the ``matmul`` path's
    minima; (b) the fast epilogue at n_tile 2048 and
    1024: decoded distances within 2^-12 of the twin's, chosen ids' true
@@ -114,9 +125,9 @@ import time
 import numpy as np
 import torch
 
-from rad_tpu_torch import (HNSWIndex, _cuda, bench, bench_kernel_variants,
-                           bench_scalar_probe, create_local_traverser,
-                           profiling)
+from rad_tpu_torch import (HNSWIndex, _cuda, bench, bench_candidates,
+                           bench_kernel_variants, bench_scalar_probe,
+                           create_local_traverser, profiling)
 from rad_tpu_torch.build.exact import build_hnsw_exact
 from rad_tpu_torch.fp import kernels
 from rad_tpu_torch.fp.pack import (popcount_rows, random_fingerprints,
@@ -257,8 +268,9 @@ def phase_device() -> str:
     for line in info["log"].splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"    ptxas: {line.strip()}")
-    found = {"tanimoto_nn_kernel": 0, "tanimoto_matrix_kernel": 0,
-             "tanimoto_bucketmin_kernel": 0}
+    found = {"tanimoto_nn_kernel": 0, "tanimoto_nn_wide_kernel": 0,
+             "tanimoto_matrix_kernel": 0, "tanimoto_bucketmin_kernel": 0,
+             "candidate_filter_kernel": 0, "integrate_candidates_kernel": 0}
     for name, res in sorted(_cuda.kernel_resources().items()):
         kernel = next((k for k in found if k in name), None)
         if kernel is None or "registers" not in res:
@@ -268,8 +280,9 @@ def phase_device() -> str:
         print(f"[1 build] {name}: {res['registers']} registers, {spill} "
               f"spill bytes", flush=True)
         check(spill == 0, f"{name} spills {spill} bytes")
-    want = {"tanimoto_nn_kernel": 5, "tanimoto_matrix_kernel": 2,
-            "tanimoto_bucketmin_kernel": 3}
+    want = {"tanimoto_nn_kernel": 5, "tanimoto_nn_wide_kernel": 7,
+            "tanimoto_matrix_kernel": 2, "tanimoto_bucketmin_kernel": 3,
+            "candidate_filter_kernel": 2, "integrate_candidates_kernel": 2}
     check(found == want, f"ptxas log names instances {found}, not {want}")
     return smi
 
@@ -542,31 +555,18 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(d.max())
 
 
-def _candidate_case(rng, n: int, k: int, n_rows: int):
-    """The recipe of tests/test_pallas_ops.py make_case: ~20 % invalid
-    candidates, half of the second half copied from the first (duplicates),
-    about half the ids scored, 40 % of the rows enqueued."""
-    cand = rng.integers(-1, n, size=k).astype(np.int32)
-    cand[rng.random(k) < 0.2] = -1
-    cand[k // 2:] = np.where(rng.random(k - k // 2) < 0.5,
-                             cand[: k - k // 2], cand[k // 2:])
-    scored = rng.random(n) < 0.5
-    scores = np.where(scored, rng.random(n), np.inf).astype(np.float32)
-    enqueued = rng.random(n_rows) < 0.4
-    row = np.minimum(np.maximum(cand, 0) + rng.integers(0, 3, size=k),
-                     n_rows - 1).astype(np.int32)
-    return cand, scored, scores, enqueued, row
-
-
 def _candidate_kernels(dev) -> dict:
-    rng = np.random.default_rng(5)
-    cand, scored, scores, enqueued, row = [
-        torch.from_numpy(a).to(dev)
-        for a in _candidate_case(rng, N, K, R)]
+    """K1 and K2 at the step's shapes against their twins, timed: eager
+    (CUDA events, in turns with the twin), device time (K1 replayed from
+    a CUDA graph, K2 from the profiler's kernel time on fresh tables) and
+    the host's microseconds a call (``rad_tpu_torch.bench_candidates``);
+    then the sweep of the dedup table's edges."""
+    x = bench_candidates.step_inputs(K, N, R, dev)
+    cand, scored, scores, enqueued, row = (
+        x[k] for k in ("cand", "scored", "scores", "enqueued", "row"))
     ts = candidate_ops.candidate_filter(cand, scored)
     torch.cuda.synchronize()
-    plain_ts = candidate_ops.candidate_filter_plain(cand, scored)
-    err = _max_abs_err(ts, plain_ts)
+    err = _max_abs_err(ts, x["ts"])
     check(err == 0.0 and int((ts >= 0).sum()) > 0,
           f"candidate_filter != plain (max abs err {err})")
     ms, plain_ms = _turns(
@@ -574,14 +574,19 @@ def _candidate_kernels(dev) -> dict:
         lambda: candidate_ops.candidate_filter_plain(cand, scored))
     # K ids read, one scored byte per valid id, K ids written
     n_valid = int(((cand >= 0) & (cand < N)).sum())
+    k1 = bench_candidates.k1_times(x)
     results = {"candidate_filter": dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        device_ms=k1["device_ms"], host_us=k1["host_us"],
         **_bound(0.0, 4 * K + n_valid + 4 * K))}
     print(f"[2 kernels] candidate_filter K={K} over N={N:,}: array-equal to "
           f"plain ({int((ts >= 0).sum())} ids); "
-          f"{_fmt(results['candidate_filter'])}", flush=True)
+          f"{_fmt(results['candidate_filter'])}; device "
+          f"{k1['device_ms']:.4f} ms replayed from a CUDA graph (profiler "
+          f"{k1['profiler_ms']:.4f} ms), host {k1['host_us']:.2f} us a "
+          f"call", flush=True)
 
-    new_scores = torch.rand(K, device=dev)
+    new_scores = x["new_scores"]
     errs = {}
     for kt in (K, K // 2):          # full width, and narrow_width's prefix
         tables = [t.clone() for t in (scored, scores, enqueued)]
@@ -609,6 +614,8 @@ def _candidate_kernels(dev) -> dict:
             ts, new_scores, cand, row, *next(copies)),
         lambda: candidate_ops.integrate_candidates_plain(
             ts, new_scores, cand, row, *next(copies)))
+    del copies
+    k2 = bench_candidates.k2_times(x)
     # the four id/score vectors read; per valid id a scored byte read and,
     # when fresh, a score and a byte written; per candidate an enqueued
     # byte read; per push a byte written and a score read; the three
@@ -617,11 +624,88 @@ def _candidate_kernels(dev) -> dict:
     nbytes = (16 * K + n_ts + 5 * n_fresh + K + 5 * n_push + K + K + 4 * K)
     results["integrate_candidates"] = r = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        device_ms=k2["device_ms"], host_us=k2["host_us"],
         **_bound(0.0, nbytes))
     print(f"[2 kernels] integrate_candidates kt=kc={K} (and kt={K // 2}), "
           f"N={N:,}, R={R:,}: every output and table array-equal to plain; "
-          f"{_fmt(r)}", flush=True)
+          f"{_fmt(r)}; device {k2['device_ms']:.4f} ms (profiler, fresh "
+          f"tables), host {k2['host_us']:.2f} us a call", flush=True)
+    _candidate_sweep(dev)
     return results
+
+
+# candidate counts across the kernels' 1,024-thread rounds and 8,192-
+# candidate rounds; 8,193: the first whose dedup table leaves shared memory
+SWEEP_K = (1, 1023, 1025, 4097, 8192, 8193, 32768)
+SWEEP_KINDS = ("random", "narrow", "one id", "last id", "out of range",
+               "phase B invalid", "kt 0")
+
+
+def _sweep_case(kind: str, k: int, dev):
+    """``(to_score, new_scores, cand, row, scored, scores, enqueued)`` as
+    device tensors: the step's recipe at ``k`` candidates over ``2k`` ids,
+    changed as ``kind`` says."""
+    rng = np.random.default_rng(k)
+    n = max(2 * k, 64)
+    n_rows = n + n // 16 + 1
+    cand, scored, scores, enqueued, row = bench_candidates.candidate_case(
+        rng, n, k, n_rows)
+    if kind == "one id":             # every candidate one unscored id
+        j = int(np.flatnonzero(~scored)[0])
+        cand[:], row[:], enqueued[j] = j, j, False
+    elif kind == "last id":          # ids n - 1, rows r_rows - 1, unmarked
+        last = rng.random(k) < 0.3
+        cand[last], row[last] = n - 1, n_rows - 1
+        scored[n - 1], enqueued[n_rows - 1] = False, False
+    elif kind == "out of range":     # ids past n, rows past r_rows
+        cand[rng.random(k) < 0.15] = n + 5
+        cand[rng.random(k) < 0.05] = -7
+        row[rng.random(k) < 0.15] = n_rows + 3
+    t = [torch.from_numpy(a).to(dev)
+         for a in (cand, scored, scores, enqueued, row)]
+    ts = candidate_ops.candidate_filter_plain(t[0], t[1])
+    if kind == "one id":
+        ts = t[0].clone()
+    elif kind == "narrow":
+        ts = ts[: k // 3]
+    elif kind == "kt 0":
+        ts = ts[:0]
+    elif kind == "phase B invalid":
+        t[0] = torch.full_like(t[0], -1)
+    new_scores = torch.rand(ts.shape[0], device=dev)
+    return ts, new_scores, t[0], t[4], t[1], t[2], t[3]
+
+
+def _candidate_sweep(dev) -> None:
+    """K1 and K2 against their twins at every ``SWEEP_K`` and kind: every
+    output and table array-equal, twice in a row (no state between
+    calls)."""
+    t0 = time.perf_counter()
+    for k in SWEEP_K:
+        for kind in SWEEP_KINDS:
+            ts, ns, cand, row, scored, scores, enqueued = _sweep_case(kind, k, dev)
+            where = f"K={k}, {kind}"
+            want = candidate_ops.candidate_filter_plain(cand, scored)
+            want2 = candidate_ops.integrate_candidates_plain(
+                ts, ns, cand, row, scored.clone(), scores.clone(),
+                enqueued.clone())
+            for _ in range(2):
+                got = candidate_ops.candidate_filter(cand, scored)
+                got2 = candidate_ops.integrate_candidates(
+                    ts, ns, cand, row, scored.clone(), scores.clone(),
+                    enqueued.clone())
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"candidate_filter {where} != plain")
+                for name, g, w in zip(["scored", "scores", "enqueued",
+                                       "fresh", "push", "cand_score"],
+                                      got2, want2):
+                    check(torch.equal(g, w),
+                          f"integrate_candidates {where}: {name} != plain")
+    print(f"[2 kernels] candidate_filter and integrate_candidates at K "
+          f"{SWEEP_K} x {SWEEP_KINDS}: every output and table array-equal "
+          f"to plain, twice in a row; {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 def _probe_case(name: str, dev) -> dict:
@@ -1218,26 +1302,72 @@ def _nn_ragged(dev) -> None:
     print(f"[7 ragged] {nq} x {nn:,}, 8 and 6 words, n_tile {n_tile}: exact "
           f"(distances and ids), floor and exact-pk array-equal to plain, "
           f"fast within 2^-12, newton within 1e-6", flush=True)
-    # the widest rows the kernel takes: nine resident query chunks, the
-    # largest shared-memory request of any launch
-    w = kernels.NN_MAX_WORDS
-    q, db = _ragged_case(nq, 640, w, dev)
-    d, i = kernels.tanimoto_nn(q, db, n_tile=n_tile)
+    # the widest resident query tile (nine chunks, the largest shared-memory
+    # request of any launch), one word more (the wide instance), and one
+    # word past the branch-free divide's range (the IEEE divide)
+    wide = (kernels.NN_MAX_WORDS, kernels.NN_MAX_WORDS + 1, WIDE_WORDS)
+    for w in wide:
+        q, db = _ragged_case(nq, 640, w, dev)
+        d, i = kernels.tanimoto_nn(q, db, n_tile=n_tile)
+        torch.cuda.synchronize()
+        pd, pi = kernels.tanimoto_nn_plain(q, db, n_tile=n_tile)
+        check(torch.equal(d, pd) and torch.equal(i, pi),
+              f"tanimoto_nn at {w} words != plain")
+        check(float(d[0]) == 0 and float(d[-1]) == 0,
+              f"tanimoto_nn at {w} words missed a planted copy")
+        check(torch.equal(kernels.nn_floor(q, db, 1, n_tile),
+                          kernels.nn_floor_plain(q, db, 1, n_tile)),
+              f"floor probe at {w} words != plain")
+        check(torch.equal(
+            kernels.nn_epilogue_probe(q, db, n_tile, "exact-pk"),
+            kernels.nn_epilogue_probe_plain(q, db, n_tile, "exact-pk")),
+            f"exact-pk probe at {w} words != plain")
+        nerr = _max_abs_err(
+            kernels.nn_epilogue_probe(q, db, n_tile, "newton"),
+            kernels.nn_epilogue_probe_plain(q, db, n_tile, "newton"))
+        fd, _ = kernels.tanimoto_nn(q, db, n_tile=n_tile, approx=True)
+        pfd, _ = kernels.tanimoto_nn_plain(q, db, n_tile=n_tile, approx=True)
+        derr = float((fd - pfd).abs().max())
+        check(nerr <= 1e-6 and derr <= 2.0 ** -12,
+              f"tanimoto_nn at {w} words: newton {nerr} (bound 1e-6), fast "
+              f"{derr} (bound 2^-12)")
+    print(f"[7 ragged] {nq} x 640, {', '.join(map(str, wide))} words: "
+          f"exact, floor and exact-pk array-equal to plain, fast within "
+          f"2^-12, newton within 1e-6", flush=True)
+
+
+def _nn_wide_timing(dev) -> dict:
+    """The wide instance at ``WIDE_WORDS`` words a row, 2048 x 65,536:
+    exact array-equal to its twin, then timed against it. Bits are set
+    with probability 1/8 (the AND of three random words)."""
+    nq, nn, w = NQ, 1 << 16, WIDE_WORDS
+    rng = np.random.default_rng(7)
+    q, db = (to_torch_packed(np.bitwise_and.reduce(
+        rng.integers(0, 1 << 32, size=(3, n, w), dtype=np.uint32)), dev)
+        for n in (nq, nn))
+    qp, dp = popcount_rows(q), popcount_rows(db)
+    d, i = kernels.tanimoto_nn(q, db, q_pops=qp, db_pops=dp)
     torch.cuda.synchronize()
-    pd, pi = kernels.tanimoto_nn_plain(q, db, n_tile=n_tile)
+    pd, pi = kernels.tanimoto_nn_plain(q, db, q_pops=qp, db_pops=dp)
     check(torch.equal(d, pd) and torch.equal(i, pi),
-          f"tanimoto_nn at {w} words != plain")
-    check(torch.equal(kernels.nn_floor(q, db, 1, n_tile),
-                      kernels.nn_floor_plain(q, db, 1, n_tile)),
-          f"floor probe at {w} words != plain")
-    print(f"[7 ragged] {nq} x 640, {w} words: exact and floor array-equal "
-          f"to plain", flush=True)
+          f"tanimoto_nn {nq} x {nn:,} x {w} words != plain")
+    ms, plain_ms = _turns(
+        lambda: kernels.tanimoto_nn(q, db, q_pops=qp, db_pops=dp),
+        lambda: kernels.tanimoto_nn_plain(q, db, q_pops=qp, db_pops=dp),
+        iters=3, warmup=1)
+    r = dict(ms=ms, plain_ms=plain_ms, library_ms=_library_ms(q, db, 3),
+             **_tanimoto_bound(nq, nn, w, nq * 8))
+    print(f"[7 timing] tanimoto_nn wide instance {nq} x {nn:,} x {w} words "
+          f"({32 * w:,} bits): array-equal to plain; {_fmt(r)}", flush=True)
+    return r
 
 
 def phase_nn(dev) -> tuple:
     """7: the 1-NN kernels at the repo's benchmark problem, then the
     port's benchmark entry points as the path that launches them."""
     _nn_ragged(dev)
+    _nn_wide_timing(dev)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     db = to_torch_packed(random_fingerprints(NN, 1024, 0.1, seed=0), dev)
     # fresh queries: bench.py's own (the library's first rows) would find
@@ -1378,7 +1508,7 @@ def _panel_phase(dev, ctx: dict) -> None:
         # launches and synchronisations of a step, from a profiled window
         # of 30 steps after 100 warm ones
         warm, _, _ = panel(t, 10 ** 9, max_steps=100)
-        _, wall_ms, (dev_ms, _, calls) = profiling._profiled(
+        _, wall_ms, (dev_ms, _, calls, _) = profiling._profiled(
             lambda: multi.fused_run_multi_tables(warm, dg, sub, 10 ** 9,
                                                  batch=8, max_steps=30))
         per_step[t] = {name: calls.get(name, 0) / 30 for name in (

@@ -72,10 +72,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rad_nn_unpack_probe.restype = ci
     lib.rad_div_counts_check.argtypes = [ci, vp, vp]
     lib.rad_div_counts_check.restype = ci
-    lib.rad_candidate_filter.argtypes = [vp, ci, vp, ci, vp, vp, vp]
+    lib.rad_candidate_filter.argtypes = [vp, ci, vp, ci, vp, ci, vp, vp]
     lib.rad_candidate_filter.restype = ci
     lib.rad_integrate_candidates.argtypes = [vp, vp, ci, vp, vp, ci, vp, vp,
-                                             ci, vp, ci, vp, vp, vp, vp, vp,
+                                             ci, vp, ci, vp, ci, vp, vp, vp,
                                              vp]
     lib.rad_integrate_candidates.restype = ci
     lib.rad_scalar_gather.argtypes = [vp, ci, vp, ci, vp, vp]

@@ -299,7 +299,9 @@ _NN_MIN = (_NN_EXACT, _NN_NEWTON)
 _I64 = torch.iinfo(torch.int64)
 _LO32 = 0xFFFFFFFF
 _NN_PLAIN_BLOCK = 1 << 14   # db rows per step of the plain twins' scan
-NN_MAX_WORDS = 288         # 9 K chunks of 32 words: csrc/tanimoto.cu
+# the widest rows whose query tile the CUDA 1-NN kernel keeps in shared
+# memory (9 K chunks of 32 words); wider rows run its wide instance
+NN_MAX_WORDS = 288
 
 
 def default_n_tile(n: int) -> int:
@@ -379,10 +381,6 @@ def _nn_keys(q, db, q_pops, db_pops, epilogue: int, n_tile: int,
         return _nn_keys_plain(q, db, q_pops, db_pops, epilogue, n_tile)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if q.shape[1] > NN_MAX_WORDS:
-        raise ValueError(f"the CUDA 1-NN kernel keeps a query tile of up to "
-                         f"{NN_MAX_WORDS} words a row in shared memory "
-                         f"(got {q.shape[1]})")
     out = torch.full((q.shape[0],),
                      _I64.max if epilogue in _NN_MIN else _I64.min,
                      dtype=torch.int64, device=q.device)

@@ -16,7 +16,7 @@ M = 16, seed 0) and reports, every figure from this run:
    timers over ``DS_STEPS_TIMED`` steps (turns on, off, off, on), then
    ``torch.profiler`` over ``DS_STEPS_PROFILED`` steps of each: device
    busy share, kernel launches, stream synchronisations and memcpys per
-   step;
+   step, and K1's and K2's device time per call on those real steps;
 4. one layer-0 candidate q-block (4096 queries against every column block
    of 8,192 rows: the bucket kernel on the tensor cores, decode, mask,
    merge sort) and one selection chunk (2048 rows): wall ms, device ms,
@@ -67,18 +67,29 @@ DS_STEPS_TIMED = 300
 DS_STEPS_PROFILED = 50
 
 
+# the K1 / K2 kernels' names in csrc/candidates.cu
+CANDIDATE_KERNELS = {"K1": "candidate_filter_kernel",
+                     "K2": "integrate_candidates_kernel"}
+
+
 def _device_summary(prof, top: int = 6):
     """(device ms, {kernel: ms} of the ``top`` largest, {CUDA runtime
-    call: count}) over every event ``prof`` recorded."""
+    call: count}, {K1 / K2: (device ms, launches)}) over every event
+    ``prof`` recorded."""
     kernels = collections.Counter()
     calls = collections.Counter()
+    named = {k: [0.0, 0] for k in CANDIDATE_KERNELS}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             kernels[e.name[:70]] += e.device_time_total / 1e3
+            for k, name in CANDIDATE_KERNELS.items():
+                if name in e.name:
+                    named[k][0] += e.device_time_total / 1e3
+                    named[k][1] += 1
         elif e.name.startswith("cuda"):
             calls[e.name] += 1
     return (sum(kernels.values()), dict(kernels.most_common(top)),
-            dict(calls))
+            dict(calls), named)
 
 
 def _profiled(fn):
@@ -94,7 +105,7 @@ def _profiled(fn):
 
 
 def _report(name: str, wall: float, summary, steps: int = 1) -> dict:
-    dev_ms, kernels, calls = summary
+    dev_ms, kernels, calls, _ = summary
     launches = calls.get("cudaLaunchKernel", 0)
     print(f"[{name}] wall {wall:.3f} ms, device {dev_ms:.3f} ms "
           f"(busy {dev_ms / wall:.1%}), {launches} kernel launches"
@@ -257,6 +268,12 @@ class DeviceScored:
                   f"launches, {rep['stream_syncs_per_step']:.1f} stream "
                   f"synchronisations, {rep['memcpys_per_step']:.1f} "
                   f"memcpys", flush=True)
+            for k, (ms, n) in summary[3].items():
+                if n:
+                    rep[f"{k}_device_ms_per_call"] = ms / n
+                    print(f"    {k} ({CANDIDATE_KERNELS[k]}): "
+                          f"{ms / n * 1e3:.2f} us device per call over {n} "
+                          f"calls", flush=True)
             out[name] = rep
         return out
 

@@ -28,7 +28,10 @@ score lookup). They take and return the reference's column shapes
 The TPU kernels are serial loops whose order is the semantics: a later
 duplicate of an id (or row) sees the mark its first occurrence set. Both
 the CUDA kernels and the ``*_plain`` twins reproduce that result with
-"first position of the value" masks.
+"first position of the value" masks. The CUDA kernels find it in a hash
+table sized by the candidates, not by the library (in shared memory up
+to 8,192 candidates, else a per-call buffer: :func:`_dedup_table`), and
+keep no state between calls.
 
 Each public wrapper runs its ``*_plain`` twin for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises. ``<wrapper>.launches``
@@ -43,7 +46,7 @@ the engine's trailing sentinel slots are never written. Boolean tables are
 
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import torch
 
@@ -53,8 +56,6 @@ __all__ = ["candidate_filter", "candidate_filter_plain",
            "scalar_checkset_plain", "scalar_chain", "scalar_chain_plain"]
 
 INF = float("inf")
-_INT_MAX = 2 ** 31 - 1
-_scratch: dict = {}
 
 
 def _first_occurrence(values: torch.Tensor, sentinel: int) -> torch.Tensor:
@@ -116,37 +117,65 @@ def integrate_candidates_plain(to_score: torch.Tensor,
     return scored, scores, enqueued, fresh, push, cand_score
 
 
-def _check_1d(name: str, t: torch.Tensor, dtypes, device) -> None:
-    if t.dim() != 1 or not t.is_contiguous() or t.dtype not in dtypes:
-        raise ValueError(f"{name} must be a contiguous 1-D tensor of "
-                         f"{[str(d) for d in dtypes]}, got {t.dtype} "
-                         f"{tuple(t.shape)}")
+def _check_1d(name: str, t: torch.Tensor, dtype, device) -> None:
+    if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor, "
+                         f"got {t.dtype} {tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
 
 
-def _first_scratch(role: str, size: int, device) -> torch.Tensor:
-    """Per-device int32 first-position table, INT_MAX between calls (the
-    kernels put back every slot they lower)."""
-    key = (role, size, device)
-    t = _scratch.get(key)
-    if t is None:
-        t = torch.full((max(size, 1),), _INT_MAX, dtype=torch.int32,
-                       device=device)
-        _scratch[key] = t
-    return t
+# dynamic shared memory a block may take: the card's 227 KB less 1 KB for
+# the kernels' static arrays (the K1/K2 dedup table, the probes' bitmap)
+_SMEM_BYTES = 227 * 1024 - 1024
 
 
-def _call(entry: str, *args, device) -> None:
+def _dedup_table(k: int) -> tuple[int, bool]:
+    """The K1/K2 dedup table for ``k`` candidates: ``(log2 of its slots,
+    whether it lies in shared memory)``. Slots are 8 bytes, at least
+    ``2 * max(k, 1)`` of them in a power of two (the table is at most half
+    full); up to ``k = 8,192`` they fit a block's shared memory, above it
+    the kernel takes a global buffer that the wrapper allocates."""
+    log2 = (2 * max(k, 1) - 1).bit_length()
+    return log2, (8 << log2) <= _SMEM_BYTES
+
+
+def _table_buffer(k: int, device):
+    """``(log2 slots, None or the per-call global table)``."""
+    log2, shared = _dedup_table(k)
+    if shared:
+        return log2, None
+    return log2, torch.empty((2 << log2,), dtype=torch.int32, device=device)
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+@functools.cache
+def _entry(name: str):
+    """C entry point ``name`` of the kernel library (built on first use)."""
     from rad_tpu_torch import _cuda
 
-    lib = _cuda.load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, entry)(
-            *[ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
-              else a for a in args], ctypes.c_void_p(stream))
-    _cuda.check(code, entry)
+    return getattr(_cuda.load_library(), name)
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Call entry point ``name`` with ``args`` (ints and device pointers
+    as ints; ``None`` for a null pointer) and ``device``'s current stream;
+    raise on a CUDA error. Enters ``device`` only when it is not the
+    current one."""
+    fn = _entry(name)
+    index = device.index
+    if index == torch.cuda.current_device():
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if code:
+        from rad_tpu_torch import _cuda
+
+        _cuda.check(code, name)
 
 
 def candidate_filter(cand_flat: torch.Tensor,
@@ -159,16 +188,18 @@ def candidate_filter(cand_flat: torch.Tensor,
     candidate order, -1 padded.
     """
     dev = cand_flat.device
-    _check_1d("cand_flat", cand_flat, (torch.int32,), dev)
-    _check_1d("scored", scored, (torch.bool,), dev)
+    _check_1d("cand_flat", cand_flat, torch.int32, dev)
+    _check_1d("scored", scored, torch.bool, dev)
     if dev.type == "cpu":
         return candidate_filter_plain(cand_flat, scored)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    k, n = cand_flat.shape[0], scored.shape[0]
+    k = cand_flat.shape[0]
     out = torch.empty((k,), dtype=torch.int32, device=dev)
-    _call("rad_candidate_filter", cand_flat, k, scored, n,
-          _first_scratch("ids", n, dev), out, device=dev)
+    log2, table = _table_buffer(k, dev)
+    _launch("rad_candidate_filter", dev, cand_flat.data_ptr(), k,
+            scored.data_ptr(), scored.shape[0], _ptr(table), log2,
+            out.data_ptr())
     candidate_filter.launches += 1
     return out
 
@@ -195,17 +226,17 @@ def integrate_candidates(to_score: torch.Tensor, new_scores: torch.Tensor,
     inf``.
     """
     dev = to_score.device
-    kt, kc = to_score.shape[0], cand_flat.shape[0]
-    for name, t, dtypes in (("to_score", to_score, (torch.int32,)),
-                            ("new_scores", new_scores, (torch.float32,)),
-                            ("cand_flat", cand_flat, (torch.int32,)),
-                            ("row_flat", row_flat, (torch.int32,)),
-                            ("scored", scored, (torch.bool,)),
-                            ("scores", scores, (torch.float32,)),
-                            ("enqueued", enqueued, (torch.bool,))):
-        _check_1d(name, t, dtypes, dev)
+    for name, t, dtype in (("to_score", to_score, torch.int32),
+                           ("new_scores", new_scores, torch.float32),
+                           ("cand_flat", cand_flat, torch.int32),
+                           ("row_flat", row_flat, torch.int32),
+                           ("scored", scored, torch.bool),
+                           ("scores", scores, torch.float32),
+                           ("enqueued", enqueued, torch.bool)):
+        _check_1d(name, t, dtype, dev)
+    kt, kc, n = to_score.shape[0], cand_flat.shape[0], scored.shape[0]
     if new_scores.shape[0] != kt or row_flat.shape[0] != kc \
-            or scores.shape[0] != scored.shape[0]:
+            or scores.shape[0] != n:
         raise ValueError("to_score/new_scores, cand_flat/row_flat and "
                          "scored/scores must pair up in length")
     if dev.type == "cpu":
@@ -213,14 +244,17 @@ def integrate_candidates(to_score: torch.Tensor, new_scores: torch.Tensor,
                                           row_flat, scored, scores, enqueued)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    n, r_rows = scored.shape[0], enqueued.shape[0]
+    # three allocations: one buffer cut into three dtype views costs the
+    # host more (six tensor operations for three)
     fresh = torch.empty((kt,), dtype=torch.bool, device=dev)
     push = torch.empty((kc,), dtype=torch.bool, device=dev)
     cand_score = torch.empty((kc,), dtype=torch.float32, device=dev)
-    _call("rad_integrate_candidates", to_score, new_scores, kt, cand_flat,
-          row_flat, kc, scored, scores, n, enqueued, r_rows,
-          _first_scratch("ids", n, dev), _first_scratch("rows", r_rows, dev),
-          fresh, push, cand_score, device=dev)
+    log2, table = _table_buffer(max(kt, kc), dev)
+    _launch("rad_integrate_candidates", dev, to_score.data_ptr(),
+            new_scores.data_ptr(), kt, cand_flat.data_ptr(),
+            row_flat.data_ptr(), kc, scored.data_ptr(), scores.data_ptr(), n,
+            enqueued.data_ptr(), enqueued.shape[0], _ptr(table), log2,
+            fresh.data_ptr(), push.data_ptr(), cand_score.data_ptr())
     integrate_candidates.launches += 1
     if kt < kc:
         integrate_candidates.narrow_launches += 1
@@ -234,11 +268,6 @@ integrate_candidates.narrow_launches = 0
 # --------------------------------------------------------------------------
 # The scalar-loop probes. Bitmaps are int32 words, bit b of word w is id
 # 32*w + b (the sign bit included); ids outside [0, n) are skipped.
-
-# dynamic shared memory a block may take for the bitmap copy: the card's
-# 227 KB less 1 KB for the kernels' static arrays
-_PROBE_SMEM_BYTES = 227 * 1024 - 1024
-
 
 def _probe_ids(idx: torch.Tensor, n: int):
     """``(valid, safe ids int64)`` of a ``[k, 1]`` / ``[k]`` id column."""
@@ -307,7 +336,7 @@ def _check_column(name: str, t: torch.Tensor, dtype, rows: int | None,
 def _bitmap_scratch(words: int, device):
     """``None`` when the bitmap's working copy fits a block's shared
     memory, else a global buffer for it (overwritten by every call)."""
-    if words * 4 <= _PROBE_SMEM_BYTES:
+    if words * 4 <= _SMEM_BYTES:
         return None
     return torch.empty((words,), dtype=torch.int32, device=device)
 
@@ -326,8 +355,8 @@ def scalar_gather(idx: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty((1, 1), dtype=torch.int32, device=dev)
-    _call("rad_scalar_gather", idx, idx.shape[0], tab, tab.shape[0], out,
-          device=dev)
+    _launch("rad_scalar_gather", dev, idx.data_ptr(), idx.shape[0],
+            tab.data_ptr(), tab.shape[0], out.data_ptr())
     scalar_gather.launches += 1
     return out
 
@@ -351,8 +380,9 @@ def scalar_checkset(idx: torch.Tensor, bm: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {dev}")
     words = bm.shape[0]
     out = torch.empty((1, 1), dtype=torch.int32, device=dev)
-    _call("rad_scalar_checkset", idx, idx.shape[0], bm, words * 32,
-          _bitmap_scratch(words, dev), out, device=dev)
+    scratch = _bitmap_scratch(words, dev)
+    _launch("rad_scalar_checkset", dev, idx.data_ptr(), idx.shape[0],
+            bm.data_ptr(), words * 32, _ptr(scratch), out.data_ptr())
     scalar_checkset.launches += 1
     return out
 
@@ -394,8 +424,10 @@ def scalar_chain(idx: torch.Tensor, scored: torch.Tensor, enq: torch.Tensor,
     out_f = torch.empty((2,), dtype=torch.float32, device=dev)
     out_i = torch.empty((1,), dtype=torch.int32, device=dev)
     emit = torch.empty((k, 1), dtype=torch.int32, device=dev)
-    _call("rad_scalar_chain", idx, k, scored, enq, scores, n,
-          _bitmap_scratch(n // 32, dev), out_f, out_i, emit, device=dev)
+    scratch = _bitmap_scratch(n // 32, dev)
+    _launch("rad_scalar_chain", dev, idx.data_ptr(), k, scored.data_ptr(),
+            enq.data_ptr(), scores.data_ptr(), n, _ptr(scratch),
+            out_f.data_ptr(), out_i.data_ptr(), emit.data_ptr())
     scalar_chain.launches += 1
     return out_f[:1].reshape(1, 1), emit, out_i[0], out_f[1]
 

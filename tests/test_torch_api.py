@@ -232,7 +232,7 @@ def test_port_never_loads_jax():
         import rad_tpu_torch.bench, rad_tpu_torch.bench_kernel_variants
         import rad_tpu_torch.bench_scalar_probe, rad_tpu_torch.graph.adjpack
         import rad_tpu_torch.traverse.multi, rad_tpu_torch.traverse.spill
-        import rad_tpu_torch.bench_mma_rate
+        import rad_tpu_torch.bench_mma_rate, rad_tpu_torch.bench_candidates
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "rad_tpu",
                                             "bench", "benchmarks"))

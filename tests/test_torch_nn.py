@@ -171,12 +171,14 @@ def test_probe_arguments(probe_data):
         variants.make_epilogue_probe(128, 256, mode="exact")
 
 
-@pytest.mark.parametrize("w", RAGGED_WORDS)
+@pytest.mark.parametrize("w", [*RAGGED_WORDS, kernels.NN_MAX_WORDS + 1])
 @pytest.mark.parametrize("nq,nn", [(1, 128), (65, 384), (130, 640)])
 def test_nn_twin_matches_pallas_at_ragged_shapes(w, nq, nn):
     """The exact twin that the CUDA kernel is held to, against the
     interpret-mode Pallas kernel with the query rows padded to its tile:
-    distances and ids array-equal, planted copies found at distance 0."""
+    distances and ids array-equal, planted copies found at distance 0; also
+    one word past the CUDA kernel's resident query tile (its wide
+    instance)."""
     q, db = ragged_case(nq, nn, w)
     rd, ri = tanimoto_nn_pallas(jnp.asarray(_pad_rows(q, 8)), jnp.asarray(db),
                                 q_tile=8, n_tile=128, interpret=True)
@@ -237,29 +239,38 @@ def test_cuda_nn_every_epilogue_at_ragged_shapes(cuda, w, nq, nn):
 
 
 @pytest.mark.gpu
-def test_cuda_nn_at_the_widest_rows(cuda):
+@pytest.mark.parametrize("w", [kernels.NN_MAX_WORDS, kernels.NN_MAX_WORDS + 1,
+                               kernels.DIV_CHECKED_WORDS,
+                               kernels.DIV_CHECKED_WORDS + 1])
+def test_cuda_nn_at_the_widest_rows(cuda, w):
     """``NN_MAX_WORDS`` words a row (nine resident query chunks, the
-    kernel's largest shared-memory request) launch and equal the twins; one
-    word more raises and launches nothing."""
-    w = kernels.NN_MAX_WORDS
+    kernel's largest shared-memory request), one word more (the wide
+    instance), and the last width of the branch-free divide and one past it
+    (the IEEE divide, 64-bit filter products): exact, floor and exact-pk
+    equal the twins, fast within 2^-12, newton within 1e-6, with 128-row
+    and 64-row n tiles."""
     q, db = ragged_case(130, 640, w)
     tq, tdb = to_torch_packed(q, cuda), to_torch_packed(db, cuda)
-    d, i = kernels.tanimoto_nn(tq, tdb, n_tile=64)
-    torch.cuda.synchronize()
-    pd, pi = kernels.tanimoto_nn_plain(tq, tdb, n_tile=64)
-    assert torch.equal(d, pd) and torch.equal(i, pi)
-    assert float(d[0]) == 0 and float(d[-1]) == 0
-    assert torch.equal(kernels.nn_floor(tq, tdb, 1, 64),
-                       kernels.nn_floor_plain(tq, tdb, 1, 64))
-    fd, _ = kernels.tanimoto_nn(tq, tdb, n_tile=64, approx=True)
-    pfd, _ = kernels.tanimoto_nn_plain(tq, tdb, n_tile=64, approx=True)
-    assert float((fd - pfd).abs().max()) <= 2.0 ** -12
-    q, db = ragged_case(2, 64, w + 1)
     before = kernels.tanimoto_nn.launches
-    with pytest.raises(ValueError, match="words"):
-        kernels.tanimoto_nn(to_torch_packed(q, cuda),
-                            to_torch_packed(db, cuda), n_tile=64)
-    assert kernels.tanimoto_nn.launches == before
+    for n_tile in (64, 128):
+        d, i = kernels.tanimoto_nn(tq, tdb, n_tile=n_tile)
+        torch.cuda.synchronize()
+        pd, pi = kernels.tanimoto_nn_plain(tq, tdb, n_tile=n_tile)
+        assert torch.equal(d, pd) and torch.equal(i, pi)
+        assert float(d[0]) == 0 and float(d[-1]) == 0
+        assert torch.equal(kernels.nn_floor(tq, tdb, 1, n_tile),
+                           kernels.nn_floor_plain(tq, tdb, 1, n_tile))
+        assert torch.equal(
+            kernels.nn_epilogue_probe(tq, tdb, n_tile, "exact-pk"),
+            kernels.nn_epilogue_probe_plain(tq, tdb, n_tile, "exact-pk"))
+        got = kernels.nn_epilogue_probe(tq, tdb, n_tile, "newton")
+        want = kernels.nn_epilogue_probe_plain(tq, tdb, n_tile, "newton")
+        assert float((got - want).abs().max()) <= 1e-6
+        fd, _ = kernels.tanimoto_nn(tq, tdb, n_tile=n_tile, approx=True)
+        pfd, _ = kernels.tanimoto_nn_plain(tq, tdb, n_tile=n_tile,
+                                           approx=True)
+        assert float((fd - pfd).abs().max()) <= 2.0 ** -12
+    assert kernels.tanimoto_nn.launches == before + 2
 
 
 @pytest.mark.gpu
