@@ -9,8 +9,9 @@ Phases, one status line each (plus detail lines):
    the kernels built by nvcc for sm_90a from ``rad_tpu_torch/csrc``, with
    the registers and spill bytes of every instance of the Tanimoto
    kernels (``tanimoto_nn_kernel``, ``tanimoto_nn_wide_kernel``,
-   ``tanimoto_matrix_kernel``, ``tanimoto_bucketmin_kernel``) and of K1/K2
-   from the ``ptxas -v`` log (a spill fails the run);
+   ``tanimoto_matrix_kernel``, ``tanimoto_bucketmin_kernel``), of K1/K2
+   and of the ``checkset`` / ``chain`` probes from the ``ptxas -v`` log (a
+   spill fails the run);
 2. each CUDA kernel against its plain-torch twin on the card, at the
    shapes its path gives it (1024-bit fingerprints; 2,048 candidates over
    the 1M graph's 1,000,000 ids and 1,066,610 rows): array-equal (the
@@ -101,9 +102,13 @@ Phases, one status line each (plus detail lines):
    ``make_device_run`` over the bit-packed adjacency (20-bit fields): the
    order of 5c.
 
-Phase 2 also holds the three probes to their twins (8,192 candidates over
-2^20 rows: the benchmark's inputs, a case of repeated ids, a case with
-every bit set).
+Phase 2 also holds the three probes to their twins on the benchmark's
+inputs (8,192 candidates over 2^20 rows) and ``checkset`` / ``chain``, on
+one CTA and on a cluster of eight, twice in a row, at k = 1 … 32,769 over
+n = 32 … 2^24 (random ids, one id repeated, every id n - 1, ids out of
+range, every bit set, every bit clear), the inputs unmodified; it times
+each probe eagerly against its twin, by CUDA-graph replay and on the
+host's clock, and ``checkset`` / ``chain`` on 1 against 8 CTAs.
 
 The last three lines are the card's ``nvidia-smi`` line, a JSON object
 describing each kernel, and ``{"ok": true, "device": {...}}``. Any failed
@@ -270,7 +275,8 @@ def phase_device() -> str:
             print(f"    ptxas: {line.strip()}")
     found = {"tanimoto_nn_kernel": 0, "tanimoto_nn_wide_kernel": 0,
              "tanimoto_matrix_kernel": 0, "tanimoto_bucketmin_kernel": 0,
-             "candidate_filter_kernel": 0, "integrate_candidates_kernel": 0}
+             "candidate_filter_kernel": 0, "integrate_candidates_kernel": 0,
+             "scalar_checkset_kernel": 0, "scalar_chain_kernel": 0}
     for name, res in sorted(_cuda.kernel_resources().items()):
         kernel = next((k for k in found if k in name), None)
         if kernel is None or "registers" not in res:
@@ -282,7 +288,8 @@ def phase_device() -> str:
         check(spill == 0, f"{name} spills {spill} bytes")
     want = {"tanimoto_nn_kernel": 5, "tanimoto_nn_wide_kernel": 7,
             "tanimoto_matrix_kernel": 2, "tanimoto_bucketmin_kernel": 3,
-            "candidate_filter_kernel": 2, "integrate_candidates_kernel": 2}
+            "candidate_filter_kernel": 2, "integrate_candidates_kernel": 2,
+            "scalar_checkset_kernel": 4, "scalar_chain_kernel": 4}
     check(found == want, f"ptxas log names instances {found}, not {want}")
     return smi
 
@@ -708,100 +715,174 @@ def _candidate_sweep(dev) -> None:
           flush=True)
 
 
-def _probe_case(name: str, dev) -> dict:
-    x = bench_scalar_probe.probe_inputs(PROBE_K, PROBE_N, dev)
-    if name == "repeated ids":
-        # every id four times over, shuffled
-        perm = torch.from_numpy(
-            np.random.default_rng(1).permutation(PROBE_K)).to(dev)
-        x["idx"] = x["idx"][: PROBE_K // 4].repeat(4, 1)[perm].contiguous()
-    elif name == "every bit set":
+# the probes' sweep: k across a thread's 8 candidates, a CTA's 4,096-
+# candidate round and the cluster's 32,768; n from one bitmap word to 2 MB
+PROBE_SWEEP_K = (1, 1023, 1025, 8192, 8193, 32768, 32769)
+PROBE_SWEEP_N = (32, 1 << 20, 1 << 22, 1 << 24)
+PROBE_SWEEP_KINDS = ("random", "one id", "last id", "out of range",
+                     "every bit set", "every bit clear")
+
+
+def _probe_kind(x: dict, kind: str, n: int) -> dict:
+    """The benchmark's inputs ``x`` changed as ``kind`` says (copies)."""
+    x = {name: t.clone() for name, t in x.items()}
+    k = x["idx"].shape[0]
+    if kind == "one id":             # one id repeated k times
+        x["idx"].fill_(int(x["idx"][0]) if k else 0)
+    elif kind == "last id":          # every id n - 1
+        x["idx"].fill_(n - 1)
+    elif kind == "out of range":     # a quarter of the ids -5, n, 2^31 - 1
+        far = torch.arange(k, device=x["idx"].device) % 4 == 1
+        bad = torch.tensor([-5, n, 2 ** 31 - 1], dtype=torch.int32,
+                           device=far.device)
+        x["idx"][far, 0] = bad[torch.arange(int(far.sum()),
+                                            device=far.device) % 3]
+    elif kind == "every bit set":
         x["bm"].fill_(-1)
         x["scored"].fill_(-1)
+    elif kind == "every bit clear":
+        x["bm"].zero_()
+        x["scored"].zero_()
     return x
 
 
-def _scalar_probes(dev) -> dict:
-    """The three scalar-loop probes against their twins: counts, the
-    gather sum and the emitted ids array-equal; the score sum, a float64
-    sum rounded once on both sides, within one f32 ulp."""
+def _check_probes(x: dict, where: str, cluster) -> float:
+    """``checkset`` and ``chain`` on ``cluster`` CTAs (None: the wrappers'
+    choice) against their twins, twice in a row, the inputs unmodified:
+    counts and emit array-equal, ``ssum`` within one f32 ulp and ``out``
+    within two. Returns the largest ``ssum`` / ``out`` difference."""
     ops = candidate_ops
-    worst = {"scalar_gather": 0.0, "scalar_checkset": 0.0,
-             "scalar_chain": 0.0}
-    for name in ("benchmark inputs", "repeated ids", "every bit set"):
-        x = _probe_case(name, dev)
-        idx, tab, bm = x["idx"], x["tab"], x["bm"]
-        scored, scores = x["scored"], x["scores"]
-        bm_before = bm.clone()
-        gather = ops.scalar_gather(idx, tab)
-        checkset = ops.scalar_checkset(idx, bm)
-        out, emit, n_new, ssum = ops.scalar_chain(idx, scored, bm, scores)
+    idx, bm, scored, scores = x["idx"], x["bm"], x["scored"], x["scores"]
+    kept = [t.clone() for t in (bm, scored, scores)]
+    p_checkset = ops.scalar_checkset_plain(idx, bm)
+    p_out, p_emit, p_n_new, p_ssum = ops.scalar_chain_plain(idx, scored, bm,
+                                                            scores)
+    ulp = 2.0 ** -23 * max(float(p_ssum), 1.0)
+    worst = 0.0
+    for _ in range(2):
+        if cluster is None:
+            checkset = ops.scalar_checkset(idx, bm)
+            out, emit, n_new, ssum = ops.scalar_chain(idx, scored, bm, scores)
+        else:
+            checkset = ops._checkset_cuda(idx, bm, cluster)
+            out, emit, n_new, ssum = ops._chain_cuda(idx, scored, bm, scores,
+                                                     cluster)
         torch.cuda.synchronize()
-        p_out, p_emit, p_n_new, p_ssum = ops.scalar_chain_plain(
-            idx, scored, bm, scores)
-        p_gather = ops.scalar_gather_plain(idx, tab)
-        p_checkset = ops.scalar_checkset_plain(idx, bm)
-        check(torch.equal(bm, bm_before), f"probes ({name}): bitmap modified")
-        check(torch.equal(gather, p_gather),
-              f"scalar_gather ({name}): {int(gather)} != {int(p_gather)}")
-        check(torch.equal(checkset, p_checkset), f"scalar_checkset ({name}): "
-              f"{int(checkset)} != {int(p_checkset)}")
+        check(torch.equal(checkset, p_checkset), f"scalar_checkset ({where}):"
+              f" {int(checkset)} != {int(p_checkset)}")
         check(int(n_new) == int(p_n_new) and torch.equal(emit, p_emit),
-              f"scalar_chain ({name}): n_new {int(n_new)} vs "
+              f"scalar_chain ({where}): n_new {int(n_new)} vs "
               f"{int(p_n_new)}, emit equal: {torch.equal(emit, p_emit)}")
-        ulp = 2.0 ** -23 * max(float(p_ssum), 1.0)
         d_ssum = abs(float(ssum) - float(p_ssum))
         d_out = abs(float(out) - float(p_out))
         check(d_ssum <= ulp and d_out <= 2 * ulp,
-              f"scalar_chain ({name}): ssum {float(ssum)} vs "
-              f"{float(p_ssum)}, out {float(out)} vs {float(p_out)} (one f32 "
-              f"ulp is {ulp:.3g})")
-        worst["scalar_chain"] = max(worst["scalar_chain"], d_ssum, d_out)
-        n_first = int(ops.scalar_checkset_plain(idx, bm))
-        print(f"[2 kernels] scalar probes, {name}: gather {int(gather)}, "
-              f"checkset {int(checkset)}, chain n_new {int(n_new)}, ssum "
-              f"{float(ssum):.4f} (plain {float(p_ssum):.4f}, diff "
-              f"{d_ssum:.3g}, one ulp {ulp:.3g}); counts and "
-              f"emit[:n_new] array-equal to plain", flush=True)
-        if name != "benchmark inputs":
-            continue
-        # bytes the card must move: idx once, one 32-byte sector per random
-        # access to device memory, each bitmap copy read once, outputs once.
-        # The bitmap's test-and-set goes to shared memory. Data-dependent
-        # parts counted for these inputs: the scores read are those of the
-        # distinct ids whose enqueue bit was clear
-        k, words = PROBE_K, PROBE_N // 32
-        nbytes = {
-            "scalar_gather": 4 * k + 32 * k + 4,
-            "scalar_checkset": 4 * k + 4 * words + 4,
-            "scalar_chain": (4 * k + 4 * words + 32 * k + 32 * n_first
-                             + 4 * k + 12),
-        }
-        fns = {
-            "scalar_gather": (lambda: ops.scalar_gather(idx, tab),
-                              lambda: ops.scalar_gather_plain(idx, tab)),
-            "scalar_checkset": (lambda: ops.scalar_checkset(idx, bm),
-                                lambda: ops.scalar_checkset_plain(idx, bm)),
-            "scalar_chain": (
-                lambda: ops.scalar_chain(idx, scored, bm, scores),
-                lambda: ops.scalar_chain_plain(idx, scored, bm, scores)),
-        }
-        flat_idx, flat_tab = idx.reshape(-1).long(), tab.reshape(-1)
-        results = {}
-        for kernel, (kernel_fn, plain_fn) in fns.items():
-            ms, plain_ms = _turns(kernel_fn, plain_fn, iters=20)
-            lib = (time_ms(lambda: flat_tab[flat_idx].sum(), 20)
-                   if kernel == "scalar_gather" else None)
-            results[kernel] = r = dict(ms=ms, plain_ms=plain_ms,
-                                       library_ms=lib,
-                                       **_bound(0.0, nbytes[kernel]))
-            print(f"[2 kernels] {kernel} k={k} n={PROBE_N:,}: "
-                  f"{ms / k * 1e6:.3f} ns per candidate; "
-                  f"{_fmt(r, 'tab[idx].sum()')} "
-                  f"({nbytes[kernel]:,} bytes: far under one launch's "
-                  f"latency, which is the practical floor)", flush=True)
-    for kernel, r in results.items():
-        r["max_abs_err"] = worst[kernel]
+              f"scalar_chain ({where}): ssum {float(ssum)} vs "
+              f"{float(p_ssum)}, out {float(out)} vs {float(p_out)} (one "
+              f"f32 ulp is {ulp:.3g})")
+        worst = max(worst, d_ssum, d_out)
+    check(all(torch.equal(a, b) for a, b in zip((bm, scored, scores), kept)),
+          f"probes ({where}): an input was modified")
+    return worst
+
+
+def _probe_sweep(dev) -> float:
+    """``checkset`` and ``chain`` on one CTA and on a cluster of eight at
+    every ``PROBE_SWEEP_K`` x ``PROBE_SWEEP_N`` x kind (see
+    :func:`_check_probes`)."""
+    t0 = time.perf_counter()
+    worst = 0.0
+    for n in PROBE_SWEEP_N:
+        for k in PROBE_SWEEP_K:
+            x = bench_scalar_probe.probe_inputs(k, n, dev)
+            for kind in PROBE_SWEEP_KINDS:
+                case = _probe_kind(x, kind, n)
+                for cluster in (1, 8):
+                    worst = max(worst, _check_probes(
+                        case, f"k={k}, n={n}, {kind}, {cluster} CTA",
+                        cluster))
+    print(f"[2 kernels] scalar_checkset and scalar_chain on 1 and 8 CTAs at "
+          f"k {PROBE_SWEEP_K} x n {PROBE_SWEEP_N} x {PROBE_SWEEP_KINDS}: "
+          f"counts and emit array-equal to plain, ssum within one f32 ulp "
+          f"(largest difference {worst:.3g}), twice in a row, inputs "
+          f"unmodified; {time.perf_counter() - t0:.1f} s", flush=True)
+    return worst
+
+
+def _sectors(entries: torch.Tensor, per_sector: int) -> int:
+    """Distinct 32-byte sectors that hold ``entries`` of a table with
+    ``per_sector`` entries a sector."""
+    return int(torch.unique(entries // per_sector).numel())
+
+
+def _scalar_probes(dev) -> dict:
+    """The three scalar-loop probes against their twins on the benchmark's
+    inputs (the gather sum array-equal; checkset and chain as in
+    :func:`_check_probes`, by the wrappers' choice of cluster), then
+    checkset and chain over the sweep; each probe timed eagerly in turns
+    with its twin, split into host and device time
+    (``bench_scalar_probe.probe_times``), and checkset and chain on one
+    CTA against eight in turns (``bench_scalar_probe.cluster_times``)."""
+    ops = candidate_ops
+    x = bench_scalar_probe.probe_inputs(PROBE_K, PROBE_N, dev)
+    idx, tab, bm = x["idx"], x["tab"], x["bm"]
+    scored, scores = x["scored"], x["scores"]
+    gather = ops.scalar_gather(idx, tab)
+    torch.cuda.synchronize()
+    p_gather = ops.scalar_gather_plain(idx, tab)
+    check(torch.equal(gather, p_gather),
+          f"scalar_gather: {int(gather)} != {int(p_gather)}")
+    chain_err = _check_probes(x, "benchmark inputs", None)
+    chain_err = max(chain_err, _probe_sweep(dev))
+    # bytes the card must move: idx once, one 32-byte sector per distinct
+    # sector of a table that these inputs touch (each input read once: not
+    # a sector per access, and not the whole bitmap, which the kernels no
+    # longer copy), the outputs once (chain's emit is k ids)
+    k, j = PROBE_K, idx.reshape(-1).long()
+    j = j[(j >= 0) & (j < PROBE_N)]
+    words = _sectors(j >> 5, 8)
+    first = torch.unique(j[((bm.reshape(-1)[j >> 5].long() >> (j & 31)) & 1)
+                           == 0])
+    nbytes = {
+        "scalar_gather": 4 * k + 32 * _sectors(j, 8) + 4,
+        "scalar_checkset": 4 * k + 32 * words + 4,
+        "scalar_chain": (4 * k + 2 * 32 * words + 32 * _sectors(first, 8)
+                         + 4 * k + 12),
+    }
+    fns = {
+        "scalar_gather": (lambda: ops.scalar_gather(idx, tab),
+                          lambda: ops.scalar_gather_plain(idx, tab)),
+        "scalar_checkset": (lambda: ops.scalar_checkset(idx, bm),
+                            lambda: ops.scalar_checkset_plain(idx, bm)),
+        "scalar_chain": (
+            lambda: ops.scalar_chain(idx, scored, bm, scores),
+            lambda: ops.scalar_chain_plain(idx, scored, bm, scores)),
+    }
+    flat_idx, flat_tab = idx.reshape(-1).long(), tab.reshape(-1)
+    results = {}
+    for kernel, (kernel_fn, plain_fn) in fns.items():
+        ms, plain_ms = _turns(kernel_fn, plain_fn, iters=20)
+        lib = (time_ms(lambda: flat_tab[flat_idx].sum(), 20)
+               if kernel == "scalar_gather" else None)
+        split = bench_scalar_probe.probe_times(kernel_fn)
+        results[kernel] = r = dict(
+            max_abs_err=chain_err if kernel == "scalar_chain" else 0.0,
+            ms=ms, plain_ms=plain_ms, library_ms=lib,
+            device_ms=split["device_ms"], host_us=split["host_us"],
+            **_bound(0.0, nbytes[kernel]))
+        print(f"[2 kernels] {kernel} k={k} n={PROBE_N:,}: "
+              f"{ms / k * 1e6:.3f} ns per candidate; "
+              f"{_fmt(r, 'tab[idx].sum()')}; device {split['device_ms']:.4f}"
+              f" ms replayed from a CUDA graph, host {split['host_us']:.2f} "
+              f"us a call, eager {split['eager_ms']:.4f} ms back to back "
+              f"({nbytes[kernel]:,} bytes: far under one launch's latency, "
+              f"which is the practical floor)", flush=True)
+    clusters = bench_scalar_probe.cluster_times(PROBE_K, PROBE_N, dev)
+    for name, by_c in clusters.items():
+        print(f"[2 kernels] scalar_{name} k={PROBE_K} on 1 vs 8 CTAs, in "
+              f"turns 1, 8, 8, 1: device "
+              f"{by_c['1']['device_ms']} vs {by_c['8']['device_ms']} ms, "
+              f"host {by_c['1']['host_us']} vs {by_c['8']['host_us']} us",
+              flush=True)
     return results
 
 

@@ -80,10 +80,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rad_integrate_candidates.restype = ci
     lib.rad_scalar_gather.argtypes = [vp, ci, vp, ci, vp, vp]
     lib.rad_scalar_gather.restype = ci
-    lib.rad_scalar_checkset.argtypes = [vp, ci, vp, ci, vp, vp, vp]
+    lib.rad_scalar_checkset.argtypes = [vp, ci, vp, ci, vp, ci, ci, vp, vp]
     lib.rad_scalar_checkset.restype = ci
-    lib.rad_scalar_chain.argtypes = [vp, ci, vp, vp, vp, ci, vp, vp, vp, vp,
-                                     vp]
+    lib.rad_scalar_chain.argtypes = [vp, ci, vp, vp, vp, ci, vp, ci, ci, vp,
+                                     vp, vp, vp, vp]
     lib.rad_scalar_chain.restype = ci
     lib.rad_cuda_error_string.argtypes = [ci]
     lib.rad_cuda_error_string.restype = ctypes.c_char_p

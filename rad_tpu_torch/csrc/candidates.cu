@@ -21,7 +21,8 @@
 // round trip to L2 (~0.5 us: the candidates, then the table bytes they
 // index, which stay resident in the 50 MB L2), and the launch costs the
 // host more than all passes together. So the design counts round trips:
-//   * Dedup in shared memory, keyed by value and sized by K: an
+//   * Dedup in shared memory, keyed by value and sized by K (dedup.cuh's
+//     hash, probe and vote, shared with scalar_probe.cu): an
 //     open-addressing table of 2^ceil(log2(2K)) slots of (key, least
 //     position), 8 bytes each, cleared by the block at entry. A bidder
 //     claims its key's slot with atomicCAS (linear probing; the table is at
@@ -73,6 +74,7 @@
 #include <stdint.h>
 
 #include "block_ops.cuh"
+#include "dedup.cuh"
 #include "launch.cuh"
 
 namespace {
@@ -92,21 +94,16 @@ __device__ __forceinline__ int2* dedup_table(int2* global_table) {
 
 // Every slot to (empty key, no position).
 __device__ __forceinline__ void table_clear(int2* tab, int n_slots) {
-  int4* pairs = reinterpret_cast<int4*>(tab);
-  for (int s = threadIdx.x; s < n_slots / 2; s += kThreads)
-    pairs[s] = make_int4(-1, INT_MAX, -1, INT_MAX);
+  block_fill(reinterpret_cast<int4*>(tab), n_slots / 2,
+             make_int4(-1, INT_MAX, -1, INT_MAX));
 }
 
 // Claims the slot of `key` (>= 0) and lowers its position to `pos`;
 // returns the slot.
 __device__ __forceinline__ int table_bid(int2* tab, int mask, int shift,
                                          int key, int pos) {
-  int s = (int)(((uint32_t)key * 0x9E3779B1u) >> shift);
-  for (;;) {
-    const int prev = atomicCAS(&tab[s].x, -1, key);
-    if (prev == -1 || prev == key) break;
-    s = (s + 1) & mask;
-  }
+  const int s = claim_slot([tab](int t) { return &tab[t].x; }, mask,
+                           hash_slot(key, shift), key);
   atomicMin(&tab[s].y, pos);
   return s;
 }
@@ -116,14 +113,6 @@ template <bool kGlobal>
 __device__ __forceinline__ int table_pos(const int2* tab, int s) {
   if constexpr (kGlobal) return __ldcg(&tab[s].y);
   return tab[s].y;
-}
-
-// Whether this lane bids for `key` (-1: none) on behalf of its warp: the
-// lowest lane that holds the key, which has the warp's least position.
-// Every lane of the warp calls it.
-__device__ __forceinline__ bool warp_bidder(int key) {
-  const unsigned peers = __match_any_sync(0xffffffffu, key);
-  return key >= 0 && (__ffs(peers) - 1) == (int)(threadIdx.x & 31);
 }
 
 // Candidates this round gives each thread (uniform over the block).

@@ -31,7 +31,10 @@ the CUDA kernels and the ``*_plain`` twins reproduce that result with
 "first position of the value" masks. The CUDA kernels find it in a hash
 table sized by the candidates, not by the library (in shared memory up
 to 8,192 candidates, else a per-call buffer: :func:`_dedup_table`), and
-keep no state between calls.
+keep no state between calls. The probes ``checkset`` and ``chain`` need
+only the distinct ids, which they find in a set of the same hash (keys
+only), spread over a thread-block cluster of 8 CTAs from
+:data:`_CLUSTER_MIN_K` candidates: :func:`_probe_set`.
 
 Each public wrapper runs its ``*_plain`` twin for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises. ``<wrapper>.launches``
@@ -126,7 +129,7 @@ def _check_1d(name: str, t: torch.Tensor, dtype, device) -> None:
 
 
 # dynamic shared memory a block may take: the card's 227 KB less 1 KB for
-# the kernels' static arrays (the K1/K2 dedup table, the probes' bitmap)
+# the kernels' static arrays (K1/K2's scan sums, the probes' partials)
 _SMEM_BYTES = 227 * 1024 - 1024
 
 
@@ -138,6 +141,32 @@ def _dedup_table(k: int) -> tuple[int, bool]:
     the kernel takes a global buffer that the wrapper allocates."""
     log2 = (2 * max(k, 1) - 1).bit_length()
     return log2, (8 << log2) <= _SMEM_BYTES
+
+
+# the probes' cluster: 8 CTAs (the portable maximum) from this many
+# candidates, one CTA below (see _probe_set). On an NVIDIA H100 80GB HBM3
+# at 700.00 W (python -m rad_tpu_torch.bench_scalar_probe --clusters) one
+# CTA is faster at 1,024 candidates and eight from 2,048 on
+_PROBE_CLUSTER = 8
+_CLUSTER_MIN_K = 2048
+
+
+def _probe_set(k: int, cluster: int | None = None) -> tuple[int, int, bool]:
+    """The ``checkset`` / ``chain`` set of distinct ids for ``k``
+    candidates: ``(CTAs, log2 of its slots, whether it lies in shared
+    memory)``. ``cluster`` (1 or 8) defaults to 8 CTAs from
+    ``_CLUSTER_MIN_K`` candidates, 1 below. Slots are 4-byte keys, at least
+    ``4 * max(k, 1)`` of them in a power of two (the set is at most a
+    quarter full: fewer second probes than at half) and at least 32 a CTA;
+    the CTAs share them in their shared memory up to 8,192 candidates on
+    one CTA and 65,536 on eight, above that the kernel takes a global
+    buffer that the wrapper allocates."""
+    if cluster is None:
+        cluster = _PROBE_CLUSTER if k >= _CLUSTER_MIN_K else 1
+    if cluster not in (1, _PROBE_CLUSTER):
+        raise ValueError(f"cluster = {cluster}: 1 or {_PROBE_CLUSTER} CTAs")
+    log2 = max((4 * max(k, 1) - 1).bit_length(), cluster.bit_length() + 4)
+    return cluster, log2, (4 << log2) // cluster <= _SMEM_BYTES
 
 
 def _table_buffer(k: int, device):
@@ -333,14 +362,6 @@ def _check_column(name: str, t: torch.Tensor, dtype, rows: int | None,
         raise ValueError(f"{name} on {t.device}, expected {device}")
 
 
-def _bitmap_scratch(words: int, device):
-    """``None`` when the bitmap's working copy fits a block's shared
-    memory, else a global buffer for it (overwritten by every call)."""
-    if words * 4 <= _SMEM_BYTES:
-        return None
-    return torch.empty((words,), dtype=torch.int32, device=device)
-
-
 def scalar_gather(idx: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
     """Load-only probe: ``[1, 1]`` int32 sum of ``tab[idx[i]]``, wrapping
     as int32 addition does.
@@ -378,11 +399,20 @@ def scalar_checkset(idx: torch.Tensor, bm: torch.Tensor) -> torch.Tensor:
         return scalar_checkset_plain(idx, bm)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    words = bm.shape[0]
+    return _checkset_cuda(idx, bm, None)
+
+
+def _checkset_cuda(idx, bm, cluster):
+    """:func:`scalar_checkset`'s launch on ``cluster`` CTAs (None: by
+    :func:`_probe_set`)."""
+    dev = idx.device
+    k = idx.shape[0]
+    cluster, log2, shared = _probe_set(k, cluster)
     out = torch.empty((1, 1), dtype=torch.int32, device=dev)
-    scratch = _bitmap_scratch(words, dev)
-    _launch("rad_scalar_checkset", dev, idx.data_ptr(), idx.shape[0],
-            bm.data_ptr(), words * 32, _ptr(scratch), out.data_ptr())
+    table = None if shared else torch.empty((1 << log2,), dtype=torch.int32,
+                                            device=dev)
+    _launch("rad_scalar_checkset", dev, idx.data_ptr(), k, bm.data_ptr(),
+            bm.shape[0] * 32, _ptr(table), log2, cluster, out.data_ptr())
     scalar_checkset.launches += 1
     return out
 
@@ -402,10 +432,10 @@ def scalar_chain(idx: torch.Tensor, scored: torch.Tensor, enq: torch.Tensor,
              repeated id counts every time: that bitmap is only read);
       emit:  [k, 1] int32, those ids in candidate order, then -1;
       ssum:  0-d f32, ``scores[j]`` summed over the distinct ids ``j``
-             whose ``enq`` bit is clear (test-and-set on a scratch copy),
-             added in float64 and rounded once: within one f32 ulp of the
-             twin's, within ``k * 2**-24 * ssum`` of an f32 sum in
-             candidate order;
+             whose ``enq`` bit is clear (the TPU loop's test-and-set on a
+             scratch copy; ``enq`` is not modified), added in float64
+             and rounded once: within one f32 ulp of the twin's, within
+             ``k * 2**-24 * ssum`` of an f32 sum in candidate order;
       out:   [1, 1] f32 = ``ssum + n_new``, the reference kernel's output.
     """
     dev = idx.device
@@ -420,16 +450,29 @@ def scalar_chain(idx: torch.Tensor, scored: torch.Tensor, enq: torch.Tensor,
         return scalar_chain_plain(idx, scored, enq, scores)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    return _chain_cuda(idx, scored, enq, scores, None)
+
+
+def _chain_cuda(idx, scored, enq, scores, cluster):
+    """:func:`scalar_chain`'s launch on ``cluster`` CTAs (None: by
+    :func:`_probe_set`)."""
+    dev = idx.device
     k = idx.shape[0]
-    out_f = torch.empty((2,), dtype=torch.float32, device=dev)
-    out_i = torch.empty((1,), dtype=torch.int32, device=dev)
+    cluster, log2, shared = _probe_set(k, cluster)
+    # four allocations and no views: the outputs as the caller gets them
+    # (bench_scalar_probe --split times both layouts)
+    out = torch.empty((1, 1), dtype=torch.float32, device=dev)
+    ssum = torch.empty((), dtype=torch.float32, device=dev)
+    n_new = torch.empty((), dtype=torch.int32, device=dev)
     emit = torch.empty((k, 1), dtype=torch.int32, device=dev)
-    scratch = _bitmap_scratch(n // 32, dev)
+    table = None if shared else torch.empty((1 << log2,), dtype=torch.int32,
+                                            device=dev)
     _launch("rad_scalar_chain", dev, idx.data_ptr(), k, scored.data_ptr(),
-            enq.data_ptr(), scores.data_ptr(), n, _ptr(scratch),
-            out_f.data_ptr(), out_i.data_ptr(), emit.data_ptr())
+            enq.data_ptr(), scores.data_ptr(), scores.shape[0], _ptr(table),
+            log2, cluster, out.data_ptr(), ssum.data_ptr(), n_new.data_ptr(),
+            emit.data_ptr())
     scalar_chain.launches += 1
-    return out_f[:1].reshape(1, 1), emit, out_i[0], out_f[1]
+    return out, emit, n_new, ssum
 
 
 scalar_chain.launches = 0

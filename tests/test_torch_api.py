@@ -245,3 +245,23 @@ def test_port_never_loads_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "isolated" in proc.stdout
+
+
+def test_package_data_ships_every_cuda_source():
+    """An installed (non-editable) rad_tpu_torch builds its kernels from the
+    package's own files: every file under ``csrc/`` and ``probes/`` (the
+    ``.cu`` sources and the ``.cuh`` headers they include) matches a
+    package-data glob of ``pyproject.toml``."""
+    import fnmatch
+    import tomllib
+    from pathlib import Path
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "rad_tpu_torch"]
+    pkg = Path(REPO) / "rad_tpu_torch"
+    files = [p.relative_to(pkg).as_posix() for d in ("csrc", "probes")
+             for p in sorted((pkg / d).iterdir()) if p.is_file()]
+    assert any(f.endswith(".cuh") for f in files)
+    assert [f for f in files
+            if not any(fnmatch.fnmatch(f, g) for g in globs)] == []

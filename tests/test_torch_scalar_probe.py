@@ -16,7 +16,9 @@ summation order of k terms in [0, 1) lies within ``k * 2**-24 * ssum`` of
 the exact sum, which is the bound used. ``emit[n_new:]`` is undefined in
 the reference (it reads the output before writing it); the port pads it
 with -1. The ``gpu`` tests hold the CUDA kernels to the twins on the card
-(``ssum`` within one f32 ulp: both round a float64 sum once).
+(``ssum`` within one f32 ulp: both round a float64 sum once), on one CTA
+and on a cluster of eight, and check that a call allocates nothing sized
+by the library.
 """
 
 import json
@@ -40,9 +42,11 @@ def _inputs(k, n):
 
 
 def _serial_model(idx, tab, bm, scored, scores):
-    """The three TPU loops, one candidate at a time."""
+    """The three TPU loops, one candidate at a time (ids outside [0, n)
+    skipped, as the port's contract says)."""
     n = scores.shape[0]
     idx = idx.reshape(-1)
+    idx = idx[(idx >= 0) & (idx < n)]
     gather = np.int32(0)
     with np.errstate(over="ignore"):
         for j in idx:
@@ -114,7 +118,20 @@ def _case(name, k, n):
         x["idx"] = (x["idx"] // 32) * 32 + 31
         x["bm"][::2] |= np.int32(-2 ** 31)
         x["scored"][1::2] |= np.int32(-2 ** 31)
+    elif name == "one id":      # one id repeated k times
+        x["idx"][:] = x["idx"][0]
+    elif name == "last id":     # every id n - 1
+        x["idx"][:] = n - 1
+    elif name == "out of range":
+        # a quarter of the ids -5, n or 2^31 - 1: skipped
+        far = np.random.default_rng(2).random(k) < 0.25
+        x["idx"][far, 0] = np.array([-5, n, 2 ** 31 - 1], np.int32)[
+            np.arange(int(far.sum())) % 3]
     return x
+
+
+KINDS = ["defaults", "duplicates", "all_set", "all_clear", "sign_bit",
+         "one id", "last id", "out of range"]
 
 
 @pytest.fixture(scope="module")
@@ -181,8 +198,7 @@ def test_serial_model_matches_interpret_mode_tpu_probes(tpu_probe_outputs):
 
 
 @pytest.mark.parametrize("k,n", [(64, 1024), (1500, 4096), (1, 32)])
-@pytest.mark.parametrize("name", ["defaults", "duplicates", "all_set",
-                                  "all_clear", "sign_bit"])
+@pytest.mark.parametrize("name", KINDS)
 def test_twins_match_serial_model(name, k, n):
     """k = 1500 is not a multiple of the kernels' 1024-thread block."""
     x = _case(name, k, n)
@@ -193,6 +209,38 @@ def test_twins_match_serial_model(name, k, n):
     if name == "all_clear":
         assert got["n_new"] == k
         assert got["checkset"] == len(np.unique(x["idx"]))
+    if name in ("one id", "last id"):
+        assert got["checkset"] <= 1
+
+
+@pytest.mark.parametrize("k,cluster,log2,shared", [
+    (0, 1, 5, True), (1, 1, 5, True), (ops._CLUSTER_MIN_K - 1, 1, None, True),
+    (ops._CLUSTER_MIN_K, 8, None, True), (8192, 8, 15, True),
+    (65536, 8, 18, True), (65537, 8, 19, False)])
+def test_probe_set_size_place_and_cluster(k, cluster, log2, shared):
+    """At least 4k slots of 4 bytes in a power of two and 32 a CTA; one CTA
+    below ``_CLUSTER_MIN_K`` candidates, 8 from it; the set in the
+    cluster's shared memory up to k = 65,536 (128 KB a CTA), in a global
+    buffer from one candidate more."""
+    got = ops._probe_set(k)
+    assert got[0] == cluster and got[2] == shared
+    if log2 is not None:
+        assert got[1] == log2
+    assert (1 << got[1]) >= 4 * k and (1 << got[1]) // cluster >= 32
+    assert (1 << got[1]) <= max(8 * k, 32 * cluster)
+
+
+@pytest.mark.parametrize("k,cluster,log2,shared", [
+    (1, 1, 5, True), (8192, 1, 15, True), (8193, 1, 16, False),
+    (1, 8, 8, True), (32768, 8, 17, True)])
+def test_probe_set_for_a_chosen_cluster(k, cluster, log2, shared):
+    """One CTA holds the set up to k = 8,192; a cluster of 8 from 1."""
+    assert ops._probe_set(k, cluster) == (cluster, log2, shared)
+
+
+def test_probe_set_refuses_other_clusters():
+    with pytest.raises(ValueError, match="cluster"):
+        ops._probe_set(64, 4)
 
 
 def test_gather_sum_wraps_as_int32():
@@ -249,36 +297,80 @@ def _on(x, device):
     return {name: torch.from_numpy(a).to(device) for name, a in x.items()}
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("k,n", [(8192, 1 << 20), (1500, 4096), (1, 32),
-                                 (8192, 1 << 22)])
-@pytest.mark.parametrize("name", ["defaults", "duplicates", "all_set",
-                                  "all_clear", "sign_bit"])
-def test_cuda_probes_equal_twins(cuda, name, k, n):
-    """n = 2^22: a 512 KB bitmap, past a block's shared memory, so the
-    kernels work on the global scratch copy."""
-    t = _on(_case(name, k, n), cuda)
-    before = (ops.scalar_gather.launches, ops.scalar_checkset.launches,
-              ops.scalar_chain.launches)
-    gather = ops.scalar_gather(t["idx"], t["tab"])
-    checkset = ops.scalar_checkset(t["idx"], t["bm"])
-    bm_before = t["bm"].clone()
-    out, emit, n_new, ssum = ops.scalar_chain(t["idx"], t["scored"],
-                                              t["bm"], t["scores"])
-    torch.cuda.synchronize()
-    assert (ops.scalar_gather.launches, ops.scalar_checkset.launches,
-            ops.scalar_chain.launches) == tuple(b + 1 for b in before)
-    assert torch.equal(t["bm"], bm_before)  # bits are set in a copy
-    assert torch.equal(gather, ops.scalar_gather_plain(t["idx"], t["tab"]))
-    assert torch.equal(checkset,
-                       ops.scalar_checkset_plain(t["idx"], t["bm"]))
-    w_out, w_emit, w_n_new, w_ssum = ops.scalar_chain_plain(
-        t["idx"], t["scored"], t["bm"], t["scores"])
+def _twins(t):
+    """The plain twins' ``(checkset, (out, emit, n_new, ssum))``."""
+    return (ops.scalar_checkset_plain(t["idx"], t["bm"]),
+            ops.scalar_chain_plain(t["idx"], t["scored"], t["bm"],
+                                   t["scores"]))
+
+
+def _assert_probes_equal(checkset, chain, want):
+    w_checkset, (w_out, w_emit, w_n_new, w_ssum) = want
+    out, emit, n_new, ssum = chain
+    assert torch.equal(checkset, w_checkset)
     assert int(n_new) == int(w_n_new)
     assert torch.equal(emit, w_emit)
     ulp = 2.0 ** -23 * max(float(w_ssum), 1.0)
     assert abs(float(ssum) - float(w_ssum)) <= ulp
     assert abs(float(out) - float(w_out)) <= 2 * ulp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [32, 1 << 20, 1 << 22, 1 << 24])
+@pytest.mark.parametrize("k", [1, 1023, 1025, 8192, 8193, 32768, 32769])
+@pytest.mark.parametrize("name", KINDS)
+def test_cuda_probes_equal_twins(cuda, name, k, n):
+    """Every kind at k across the kernels' 8-candidate threads, a CTA's
+    4,096-candidate rounds and the cluster's 32,768, n up to 2^24 (a 2 MB
+    bitmap, read in place): the wrappers' own choice of cluster and both
+    instances (1 and 8 CTAs), each twice in a row, the bitmaps unmodified."""
+    t = _on(_case(name, k, n), cuda)
+    before = (ops.scalar_gather.launches, ops.scalar_checkset.launches,
+              ops.scalar_chain.launches)
+    gather = ops.scalar_gather(t["idx"], t["tab"])
+    assert torch.equal(gather, ops.scalar_gather_plain(t["idx"], t["tab"]))
+    inputs = {name: t[name].clone() for name in ("bm", "scored", "scores")}
+    want = _twins(t)
+    for cluster in (None, 1, 8):
+        for _ in range(2):   # two calls in a row: no state between them
+            if cluster is None:
+                checkset = ops.scalar_checkset(t["idx"], t["bm"])
+                chain = ops.scalar_chain(t["idx"], t["scored"], t["bm"],
+                                         t["scores"])
+            else:
+                checkset = ops._checkset_cuda(t["idx"], t["bm"], cluster)
+                chain = ops._chain_cuda(t["idx"], t["scored"], t["bm"],
+                                        t["scores"], cluster)
+            torch.cuda.synchronize()
+            _assert_probes_equal(checkset, chain, want)
+    assert (ops.scalar_gather.launches, ops.scalar_checkset.launches,
+            ops.scalar_chain.launches) == (before[0] + 1, before[1] + 6,
+                                           before[2] + 6)
+    for name, a in inputs.items():
+        assert torch.equal(t[name], a), name  # the bitmaps are only read
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [8192, 262144])
+def test_cuda_probes_allocate_nothing_sized_by_n(cuda, k):
+    """At n = 2^24 a call's device memory grows by its outputs and, past
+    the cluster's shared memory (k = 262,144), the per-call set: no copy
+    of a 2 MB bitmap."""
+    t = _on(_inputs(k, 1 << 24), cuda)
+    cluster, log2, shared = ops._probe_set(k)
+    table = 0 if shared else 4 << log2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    checkset = ops.scalar_checkset(t["idx"], t["bm"])
+    chain = ops.scalar_chain(t["idx"], t["scored"], t["bm"], t["scores"])
+    torch.cuda.synchronize()
+    outputs = 4 + 8 + 4 + 4 * k   # checkset's count; chain's sums, n_new, emit
+    slack = 4 * 512               # the allocator's rounding, per block
+    assert torch.cuda.memory_allocated(cuda) - base <= outputs + slack
+    assert torch.cuda.max_memory_allocated(cuda) - base <= \
+        outputs + table + slack + 512
+    _assert_probes_equal(checkset, chain, _twins(t))
 
 
 @pytest.mark.gpu
