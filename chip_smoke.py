@@ -10,8 +10,8 @@ Phases, one status line each (plus detail lines):
    the registers and spill bytes of every instance of the Tanimoto
    kernels (``tanimoto_nn_kernel``, ``tanimoto_nn_wide_kernel``,
    ``tanimoto_matrix_kernel``, ``tanimoto_bucketmin_kernel``), of K1/K2
-   and of the ``checkset`` / ``chain`` probes from the ``ptxas -v`` log (a
-   spill fails the run);
+   and of the ``gather`` / ``checkset`` / ``chain`` probes from the
+   ``ptxas -v`` log (a spill fails the run);
 2. each CUDA kernel against its plain-torch twin on the card, at the
    shapes its path gives it (1024-bit fingerprints; 2,048 candidates over
    the 1M graph's 1,000,000 ids and 1,066,610 rows): array-equal (the
@@ -76,8 +76,9 @@ Phases, one status line each (plus detail lines):
    seed 0; the queries drawn with seed 1, not from the library), after a
    ragged case (130 x 4,224, rows of 8 and 6 words, every epilogue; and
    rows of 288, 289 and 1,025 words: the widest resident query tile, the
-   wide instance, the IEEE divide) and the wide instance timed at 2048 x
-   65,536 x 1,025 words against its twin: (a)
+   wide instance, the IEEE divide) and the wide instance driven at 2048 x
+   65,536 x 1,025 words with every epilogue (its launches counted), held
+   to the twins and timed against the exact one: (a)
    ``tanimoto_nn`` array-equal to its twin and to the ``matmul`` path's
    minima; (b) the fast epilogue at n_tile 2048 and
    1024: decoded distances within 2^-12 of the twin's, chosen ids' true
@@ -103,12 +104,15 @@ Phases, one status line each (plus detail lines):
    order of 5c.
 
 Phase 2 also holds the three probes to their twins on the benchmark's
-inputs (8,192 candidates over 2^20 rows) and ``checkset`` / ``chain``, on
-one CTA and on a cluster of eight, twice in a row, at k = 1 … 32,769 over
-n = 32 … 2^24 (random ids, one id repeated, every id n - 1, ids out of
-range, every bit set, every bit clear), the inputs unmodified; it times
-each probe eagerly against its twin, by CUDA-graph replay and on the
-host's clock, and ``checkset`` / ``chain`` on 1 against 8 CTAs.
+inputs (8,192 candidates over 2^20 rows); ``gather`` on one CTA and on a
+cluster of eight at k = 1 … 65,537 over n = 32 and 2^20 (random ids, one
+id repeated, every id n - 1, ids out of range, a table over all of int32
+so that the sum wraps); ``checkset`` / ``chain``, on one CTA and on a
+cluster of eight, twice in a row, at k = 1 … 32,769 over n = 32 … 2^24
+(random ids, one id repeated, every id n - 1, ids out of range, every bit
+set, every bit clear), the inputs unmodified; it times each probe eagerly
+against its twin, by CUDA-graph replay and on the host's clock, and on 1
+against 8 CTAs.
 
 The last three lines are the card's ``nvidia-smi`` line, a JSON object
 describing each kernel, and ``{"ok": true, "device": {...}}``. Any failed
@@ -174,6 +178,10 @@ KERNELS = {
         replaces="rad_tpu/fp/kernels.py:354"),
     "tanimoto_nn_approx": dict(
         wrapper=kernels.tanimoto_nn, counter="approx_launches",
+        source="rad_tpu_torch/csrc/tanimoto.cu",
+        replaces="rad_tpu/fp/kernels.py:354"),
+    "tanimoto_nn_wide": dict(
+        wrapper=kernels.tanimoto_nn, counter="wide_launches",
         source="rad_tpu_torch/csrc/tanimoto.cu",
         replaces="rad_tpu/fp/kernels.py:354"),
     "nn_floor": dict(
@@ -276,7 +284,8 @@ def phase_device() -> str:
     found = {"tanimoto_nn_kernel": 0, "tanimoto_nn_wide_kernel": 0,
              "tanimoto_matrix_kernel": 0, "tanimoto_bucketmin_kernel": 0,
              "candidate_filter_kernel": 0, "integrate_candidates_kernel": 0,
-             "scalar_checkset_kernel": 0, "scalar_chain_kernel": 0}
+             "scalar_gather_kernel": 0, "scalar_checkset_kernel": 0,
+             "scalar_chain_kernel": 0}
     for name, res in sorted(_cuda.kernel_resources().items()):
         kernel = next((k for k in found if k in name), None)
         if kernel is None or "registers" not in res:
@@ -289,7 +298,8 @@ def phase_device() -> str:
     want = {"tanimoto_nn_kernel": 5, "tanimoto_nn_wide_kernel": 7,
             "tanimoto_matrix_kernel": 2, "tanimoto_bucketmin_kernel": 3,
             "candidate_filter_kernel": 2, "integrate_candidates_kernel": 2,
-            "scalar_checkset_kernel": 4, "scalar_chain_kernel": 4}
+            "scalar_gather_kernel": 2, "scalar_checkset_kernel": 4,
+            "scalar_chain_kernel": 4}
     check(found == want, f"ptxas log names instances {found}, not {want}")
     return smi
 
@@ -808,6 +818,46 @@ def _probe_sweep(dev) -> float:
     return worst
 
 
+# gather: k on both sides of the cluster's threshold (2,048) and of a
+# cluster round (32,768), n from one sector to the benchmark's table
+GATHER_SWEEP_K = (1, 2047, 2048, 8193, 32769, 65537)
+GATHER_SWEEP_N = (32, 1 << 20)
+GATHER_SWEEP_KINDS = ("random", "one id", "last id", "out of range",
+                      "wrapping")
+
+
+def _gather_sweep(dev) -> None:
+    """``gather`` on one CTA and on a cluster of eight, twice each, at every
+    ``GATHER_SWEEP_K`` x ``GATHER_SWEEP_N`` x kind, array-equal to its twin;
+    "wrapping" draws the table over all of int32, so the sums wrap."""
+    t0 = time.perf_counter()
+    cases = 0
+    for n in GATHER_SWEEP_N:
+        for k in GATHER_SWEEP_K:
+            x = bench_scalar_probe.probe_inputs(k, n, dev)
+            for kind in GATHER_SWEEP_KINDS:
+                if kind == "wrapping":
+                    case = dict(x, tab=torch.from_numpy(
+                        np.random.default_rng(k).integers(
+                            -2 ** 31, 2 ** 31, size=(n, 1), dtype=np.int32))
+                        .to(dev))
+                else:
+                    case = _probe_kind(x, kind, n)
+                idx, tab = case["idx"], case["tab"]
+                want = candidate_ops.scalar_gather_plain(idx, tab)
+                for cluster in (1, 8, 8, 1):
+                    got = candidate_ops._gather_cuda(idx, tab, cluster)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want),
+                          f"scalar_gather (k={k}, n={n}, {kind}, {cluster} "
+                          f"CTA): {int(got)} != {int(want)}")
+                    cases += 1
+    print(f"[2 kernels] scalar_gather on 1 and 8 CTAs at k {GATHER_SWEEP_K} "
+          f"x n {GATHER_SWEEP_N} x {GATHER_SWEEP_KINDS}, twice each: "
+          f"array-equal to plain in {cases} launches; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def _sectors(entries: torch.Tensor, per_sector: int) -> int:
     """Distinct 32-byte sectors that hold ``entries`` of a table with
     ``per_sector`` entries a sector."""
@@ -831,6 +881,7 @@ def _scalar_probes(dev) -> dict:
     p_gather = ops.scalar_gather_plain(idx, tab)
     check(torch.equal(gather, p_gather),
           f"scalar_gather: {int(gather)} != {int(p_gather)}")
+    _gather_sweep(dev)
     chain_err = _check_probes(x, "benchmark inputs", None)
     chain_err = max(chain_err, _probe_sweep(dev))
     # bytes the card must move: idx once, one 32-byte sector per distinct
@@ -1417,37 +1468,72 @@ def _nn_ragged(dev) -> None:
           f"2^-12, newton within 1e-6", flush=True)
 
 
-def _nn_wide_timing(dev) -> dict:
-    """The wide instance at ``WIDE_WORDS`` words a row, 2048 x 65,536:
-    exact array-equal to its twin, then timed against it. Bits are set
-    with probability 1/8 (the AND of three random words)."""
+def _nn_wide(dev) -> tuple:
+    """The wide instance at ``WIDE_WORDS`` words a row, 2048 x 65,536 (bits
+    set with probability 1/8, the AND of three random words): every
+    epilogue through the public wrappers with the launch counter set to 0
+    just before and read just after, then each result held to its twin
+    (exact, floor and exact-pk array-equal, fast within 2^-12, newton within
+    1e-6), then the exact epilogue timed against its twin. Returns ``(the
+    kernels-line entry, launches)``."""
     nq, nn, w = NQ, 1 << 16, WIDE_WORDS
     rng = np.random.default_rng(7)
     q, db = (to_torch_packed(np.bitwise_and.reduce(
         rng.integers(0, 1 << 32, size=(3, n, w), dtype=np.uint32)), dev)
         for n in (nq, nn))
     qp, dp = popcount_rows(q), popcount_rows(db)
+    kernels.tanimoto_nn.wide_launches = 0
     d, i = kernels.tanimoto_nn(q, db, q_pops=qp, db_pops=dp)
+    fd, _ = kernels.tanimoto_nn(q, db, q_pops=qp, db_pops=dp, approx=True)
+    floor = kernels.nn_floor(q, db, 1, 1024)
+    pk = kernels.nn_epilogue_probe(q, db, 1024, "exact-pk", qp, dp)
+    nt = kernels.nn_epilogue_probe(q, db, 1024, "newton", qp, dp)
     torch.cuda.synchronize()
+    launches = kernels.tanimoto_nn.wide_launches
+    check(launches == 5, f"the wide instance launched {launches} times for "
+          f"five calls at {w} words")
     pd, pi = kernels.tanimoto_nn_plain(q, db, q_pops=qp, db_pops=dp)
-    check(torch.equal(d, pd) and torch.equal(i, pi),
-          f"tanimoto_nn {nq} x {nn:,} x {w} words != plain")
+    check(d.shape == (nq,) and bool(torch.isfinite(d).all())
+          and torch.equal(d, pd) and torch.equal(i, pi),
+          f"tanimoto_nn {nq} x {nn:,} x {w} words != plain "
+          f"({int((i != pi).sum())} ids differ)")
+    pfd, _ = kernels.tanimoto_nn_plain(q, db, q_pops=qp, db_pops=dp,
+                                       approx=True)
+    derr = float((fd - pfd).abs().max())
+    check(torch.equal(floor, kernels.nn_floor_plain(q, db, 1, 1024)),
+          f"floor probe at {w} words != plain")
+    check(torch.equal(pk, kernels.nn_epilogue_probe_plain(
+        q, db, 1024, "exact-pk", qp, dp)), f"exact-pk probe at {w} words "
+          f"!= plain")
+    nerr = _max_abs_err(nt, kernels.nn_epilogue_probe_plain(
+        q, db, 1024, "newton", qp, dp))
+    check(derr <= 2.0 ** -12 and nerr <= 1e-6,
+          f"tanimoto_nn at {nq} x {nn:,} x {w} words: fast {derr} (bound "
+          f"2^-12), newton {nerr} (bound 1e-6)")
     ms, plain_ms = _turns(
         lambda: kernels.tanimoto_nn(q, db, q_pops=qp, db_pops=dp),
         lambda: kernels.tanimoto_nn_plain(q, db, q_pops=qp, db_pops=dp),
         iters=3, warmup=1)
-    r = dict(ms=ms, plain_ms=plain_ms, library_ms=_library_ms(q, db, 3),
+    # the floor probe: the staging and the product with a 32-bit max, so
+    # the exact time less this is what its epilogue costs
+    floor_ms = time_ms(lambda: kernels.nn_floor(q, db, 1, 1024), 3, 1)
+    r = dict(max_abs_err=_max_abs_err(d, pd), ms=ms, plain_ms=plain_ms,
+             library_ms=_library_ms(q, db, 3),
              **_tanimoto_bound(nq, nn, w, nq * 8))
-    print(f"[7 timing] tanimoto_nn wide instance {nq} x {nn:,} x {w} words "
-          f"({32 * w:,} bits): array-equal to plain; {_fmt(r)}", flush=True)
-    return r
+    print(f"[7 wide] tanimoto_nn wide instance {nq} x {nn:,} x {w} words "
+          f"({32 * w:,} bits), {launches} launches (exact, fast, floor, "
+          f"exact-pk, newton): exact, floor and exact-pk array-equal to "
+          f"plain, fast within {derr:.3g} (bound 2^-12), newton within "
+          f"{nerr:.3g} (bound 1e-6); exact {_fmt(r)}; the floor probe "
+          f"{floor_ms:.4f} ms", flush=True)
+    return r, launches
 
 
 def phase_nn(dev) -> tuple:
     """7: the 1-NN kernels at the repo's benchmark problem, then the
     port's benchmark entry points as the path that launches them."""
     _nn_ragged(dev)
-    _nn_wide_timing(dev)
+    wide, wide_launches = _nn_wide(dev)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     db = to_torch_packed(random_fingerprints(NN, 1024, 0.1, seed=0), dev)
@@ -1479,7 +1565,7 @@ def phase_nn(dev) -> tuple:
             lambda: kernels.nn_epilogue_probe_plain(q, db, 1024, "exact-pk",
                                                     qp, dp)),
     }
-    results = {}
+    results = {"tanimoto_nn_wide": wide}
     for name, (kernel_fn, plain_fn) in timed.items():
         ms, plain_ms = _turns(kernel_fn, plain_fn, iters=3, warmup=1)
         results[name] = r = dict(max_abs_err=errs[name], ms=ms,
@@ -1531,7 +1617,7 @@ def phase_nn(dev) -> tuple:
     for name, count in counts.items():
         check(count > 0, f"{name} never launched by bench_kernel_variants")
     launches["tanimoto_nn_approx"] += counts.pop("tanimoto_nn_approx")
-    launches.update(counts)
+    launches.update(counts, tanimoto_nn_wide=wide_launches)
     print(f"[7 launches] {launches}", flush=True)
     return results, launches
 

@@ -78,7 +78,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                                              ci, vp, ci, vp, ci, vp, vp, vp,
                                              vp]
     lib.rad_integrate_candidates.restype = ci
-    lib.rad_scalar_gather.argtypes = [vp, ci, vp, ci, vp, vp]
+    lib.rad_scalar_gather.argtypes = [vp, ci, vp, ci, ci, vp, vp]
     lib.rad_scalar_gather.restype = ci
     lib.rad_scalar_checkset.argtypes = [vp, ci, vp, ci, vp, ci, ci, vp, vp]
     lib.rad_scalar_checkset.restype = ci

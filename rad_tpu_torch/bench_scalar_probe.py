@@ -31,8 +31,8 @@ Two options print one more JSON line each before that one:
                microseconds of two layouts of ``chain``'s outputs
                (:func:`output_layouts_us`);
   --clusters   K,...: at each k, the device ms and host microseconds a
-               call of ``checkset`` and ``chain`` on one CTA and on a
-               cluster of eight, in turns 1, 8, 8, 1 (:func:`cluster_times`).
+               call of each probe on one CTA and on a cluster of eight, in
+               turns 1, 8, 8, 1 (:func:`cluster_times`).
 """
 
 from __future__ import annotations
@@ -128,13 +128,14 @@ def output_layouts_us(k: int, device, calls: int = 200) -> dict:
 
 
 def cluster_times(k: int, n: int, device, calls: int = 20) -> dict:
-    """``checkset`` and ``chain`` at ``k`` candidates over ``n`` rows on
-    one CTA and on a cluster of eight, in turns 1, 8, 8, 1: device ms a
+    """Each probe at ``k`` candidates over ``n`` rows on one CTA and on a
+    cluster of eight, in turns 1, 8, 8, 1: device ms a
     call (replayed from a CUDA graph of ``calls`` calls) and the host's
     microseconds a call (200 calls enqueued), ``{probe: {"1": {"device_ms":
     [two readings], "host_us": [two]}, "8": {...}}}``."""
     x = probe_inputs(k, n, device)
-    fns = {"checkset": lambda c: ops._checkset_cuda(x["idx"], x["bm"], c),
+    fns = {"gather": lambda c: ops._gather_cuda(x["idx"], x["tab"], c),
+           "checkset": lambda c: ops._checkset_cuda(x["idx"], x["bm"], c),
            "chain": lambda c: ops._chain_cuda(x["idx"], x["scored"],
                                               x["bm"], x["scores"], c)}
     out = {}
@@ -159,8 +160,8 @@ def main(argv=None) -> int:
                     help="also print each probe's eager, host and device "
                          "time")
     ap.add_argument("--clusters", default="",
-                    help="comma-separated k: also print checkset's and "
-                         "chain's device and host time on 1 and 8 CTAs")
+                    help="comma-separated k: also print each probe's "
+                         "device and host time on 1 and 8 CTAs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("rad_tpu_torch.bench_scalar_probe: no CUDA device "

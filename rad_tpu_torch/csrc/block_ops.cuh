@@ -8,7 +8,7 @@
 
 namespace {
 
-constexpr int kThreads = 1024;  // K1/K2's and gather's block
+constexpr int kThreads = 1024;  // K1/K2's block
 constexpr int kWarps = kThreads / 32;
 
 // Every helper takes the block's size kBlock (a multiple of 32 up to 1024:

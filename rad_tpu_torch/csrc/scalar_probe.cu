@@ -24,7 +24,13 @@
 // copy of the bitmap, so that the loop can test-and-set without writing its
 // input; the function needs only "distinct ids whose bit is clear".
 //
-// Design (gather keeps the first port's one-block loop):
+// Design:
+//   * gather: each thread holds up to kItems consecutive ids of a round
+//     (two 16-byte loads) and issues every table load before it adds any;
+//     the CTA's uint32 sum goes to rank 0 through distributed shared
+//     memory (cluster_total), which stores the one int32: no global atomic
+//     and no memset launch. uint32 addition wraps as the int32 sum does and
+//     does not depend on the order, so the result is the serial loop's.
 //   * No bitmap copy. The bitmaps are read in place and read-only (__ldg),
 //     one 32-bit word per candidate: nothing sized by n is read, written or
 //     allocated.
@@ -58,9 +64,9 @@
 //   * Above the shared memory (k > 8,192 at kCluster 1, k > 65,536 at 8)
 //     the set is a per-call global buffer that the wrapper allocates
 //     (kGlobal).
-//   * The wrapper picks kCluster from k (candidate_ops._probe_set): one CTA
-//     below 2,048 candidates, eight from there on; both instances compute
-//     the same result.
+//   * The wrapper picks kCluster from k (candidate_ops._probe_cluster): one
+//     CTA below 2,048 candidates, eight from there on; both instances
+//     compute the same result.
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase 2
 // and python -m rad_tpu_torch.bench_scalar_probe --split --clusters, in
@@ -75,7 +81,13 @@
 // against 7.4-7.5 / 9.9-10.1. On one CTA at k = 8,192: 15.1 / 23.6-24.0
 // us. The host's path is 11-15 us a call (checkset) and 27-40 us (chain,
 // four output allocations), so a caller's eager time, 0.013-0.018 and
-// 0.029-0.049 ms, is the host's more than the kernel's.
+// 0.029-0.049 ms, is the host's more than the kernel's. gather at k =
+// 8,192 over n = 2^20, in turns with the one-block loop it replaced
+// (--split): device time 3.2 us against 6.2; eager and host time are the
+// host's launch path and did not separate (0.013-0.023 ms, 11-21 us a
+// call on either side). On one CTA it takes 6.1-6.2 us; at k = 1,024 one
+// CTA is faster (2.3-2.4 against 2.6-2.9 us) and at 2,048 the two tie
+// (--clusters).
 //
 // The score sum. The TPU loop adds f32 scores in candidate order; a parallel
 // sum cannot repeat that rounding. The kernel adds in float64 (per thread,
@@ -107,7 +119,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// checkset's and chain's block: 512 threads (fewer warps to launch and to
+// the probes' block: 512 threads (fewer warps to launch and to
 // pass each barrier than 1,024; two candidates a thread at k = 8,192 on 8
 // CTAs)
 constexpr int kBlock = 512;
@@ -115,20 +127,6 @@ constexpr int kBlockWarps = kBlock / 32;
 constexpr int kItems = 8;                // candidates a thread holds a round
 constexpr int kRound = kItems * kBlock;  // at most 4,096 a CTA a round
 constexpr int kMaxCluster = 8;           // the portable cluster size
-
-__global__ void __launch_bounds__(kThreads)
-scalar_gather_kernel(const int* __restrict__ idx, int k,
-                     const uint32_t* __restrict__ tab, int n,
-                     uint32_t* __restrict__ out) {
-  __shared__ uint32_t warp_sums[kWarps];
-  uint32_t acc = 0;  // unsigned: wraps as the int32 sum does
-  for (int i = threadIdx.x; i < k; i += kThreads) {
-    const int j = idx[i];
-    if (j >= 0 && j < n) acc += tab[j];
-  }
-  acc = block_sum(acc, warp_sums);
-  if (threadIdx.x == 0) out[0] = acc;
-}
 
 __host__ __device__ constexpr int log2_of(int c) {
   return c <= 1 ? 0 : 1 + log2_of(c / 2);
@@ -277,6 +275,37 @@ __device__ __forceinline__ T cluster_total(T v, T* partials) {
   }
 }
 
+// gather: every thread issues the table loads of all its candidates of a
+// round before it adds any, so a CTA waits on one id round trip and one
+// table round trip a round; uint32 addition wraps as the int32 sum does and
+// is order-free, so the CTAs' partials add up to the serial loop's bits.
+template <int kCluster>
+__global__ void __launch_bounds__(kBlock)
+scalar_gather_kernel(const int* __restrict__ idx, int k,
+                     const uint32_t* __restrict__ tab, int n,
+                     uint32_t* __restrict__ out) {
+  __shared__ uint32_t warp_sums[kBlockWarps];
+  __shared__ uint32_t partials[kCluster];
+  const int rank = kCluster == 1 ? 0 : blockIdx.x;
+  const bool aligned = ((uintptr_t)idx & 15) == 0;
+  uint32_t acc = 0;
+  for (int base = 0; base < k;) {
+    const Round r = round_at<kCluster>(base, k, rank);
+    base += r.step;
+    int id[kItems];
+    uint32_t v[kItems];
+    load_ids(idx, aligned, r, id);
+#pragma unroll
+    for (int e = 0; e < kItems; ++e)
+      v[e] = id[e] >= 0 && id[e] < n ? __ldg(tab + id[e]) : 0u;
+#pragma unroll
+    for (int e = 0; e < kItems; ++e) acc += v[e];
+  }
+  acc = block_sum<kBlock>(acc, warp_sums);
+  acc = cluster_total<kCluster>(acc, partials);
+  if (rank == 0 && threadIdx.x == 0) out[0] = acc;
+}
+
 template <int kCluster, bool kGlobal>
 __global__ void __launch_bounds__(kBlock)
 scalar_checkset_kernel(int* global_set, int log2_slots,
@@ -390,25 +419,14 @@ scalar_chain_kernel(int* global_set, int log2_slots,
 
 using Granted = std::atomic<int>[rad_launch::kMaxDevices];
 
-// Launches the instance for `cluster` CTAs with the set in shared memory
-// (set == null; `granted[cluster > 1]` is that instance's allowance, see
-// launch.cuh) or in `set`. `kernels` lists the instances <1, false>,
-// <1, true>, <8, false>, <8, true>.
+// Launches `kernel` on one CTA of kBlock threads, or on one cluster of
+// `cluster` CTAs (cudaLaunchKernelEx), with `smem` bytes of dynamic shared
+// memory.
 template <typename Kernel, typename... Args>
-cudaError_t launch_probe(const Kernel (&kernels)[4], Granted (&granted)[2],
-                         void* set, int log2_slots, int cluster,
-                         cudaStream_t stream, Args... args) {
-  if (cluster != 1 && cluster != kMaxCluster) return cudaErrorInvalidValue;
-  const int wide = cluster > 1;
-  const int local_log2 = log2_slots - log2_of(cluster);
-  if (local_log2 < 2 || log2_slots > 30) return cudaErrorInvalidValue;
-  const Kernel kernel = kernels[2 * wide + (set != nullptr)];
-  const int smem = set != nullptr ? 0 : 4 << local_log2;
-  cudaError_t err =
-      rad_launch::allow_dynamic_smem(kernel, smem, granted[wide]);
-  if (err != cudaSuccess) return err;
-  if (!wide) {
-    kernel<<<1, kBlock, smem, stream>>>((int*)set, log2_slots, args...);
+cudaError_t launch_ctas(Kernel kernel, int cluster, int smem,
+                        cudaStream_t stream, Args... args) {
+  if (cluster == 1) {
+    kernel<<<1, kBlock, smem, stream>>>(args...);
     return cudaGetLastError();
   }
   cudaLaunchAttribute attr;
@@ -423,9 +441,30 @@ cudaError_t launch_probe(const Kernel (&kernels)[4], Granted (&granted)[2],
   config.stream = stream;
   config.attrs = &attr;
   config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, kernel, (int*)set, log2_slots, args...);
+  const cudaError_t err = cudaLaunchKernelEx(&config, kernel, args...);
   const cudaError_t last = cudaGetLastError();  // clears a refused launch
   return err != cudaSuccess ? err : last;
+}
+
+// Launches the instance for `cluster` CTAs with the set in shared memory
+// (set == null; `granted[cluster > 1]` is that instance's allowance, see
+// launch.cuh) or in `set`. `kernels` lists the instances <1, false>,
+// <1, true>, <8, false>, <8, true>.
+template <typename Kernel, typename... Args>
+cudaError_t launch_probe(const Kernel (&kernels)[4], Granted (&granted)[2],
+                         void* set, int log2_slots, int cluster,
+                         cudaStream_t stream, Args... args) {
+  if (cluster != 1 && cluster != kMaxCluster) return cudaErrorInvalidValue;
+  const int wide = cluster > 1;
+  const int local_log2 = log2_slots - log2_of(cluster);
+  if (local_log2 < 2 || log2_slots > 30) return cudaErrorInvalidValue;
+  const Kernel kernel = kernels[2 * wide + (set != nullptr)];
+  const int smem = set != nullptr ? 0 : 4 << local_log2;
+  const cudaError_t err =
+      rad_launch::allow_dynamic_smem(kernel, smem, granted[wide]);
+  if (err != cudaSuccess) return err;
+  return launch_ctas(kernel, cluster, smem, stream, (int*)set, log2_slots,
+                     args...);
 }
 
 }  // namespace
@@ -433,10 +472,13 @@ cudaError_t launch_probe(const Kernel (&kernels)[4], Granted (&granted)[2],
 extern "C" {
 
 int rad_scalar_gather(const void* idx, int k, const void* tab, int n,
-                      void* out, void* stream) {
-  scalar_gather_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)idx, k, (const uint32_t*)tab, n, (uint32_t*)out);
-  return (int)cudaGetLastError();
+                      int cluster, void* out, void* stream) {
+  if (cluster != 1 && cluster != kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_ctas(cluster == 1 ? scalar_gather_kernel<1>
+                                       : scalar_gather_kernel<kMaxCluster>,
+                          cluster, 0, (cudaStream_t)stream, (const int*)idx,
+                          k, (const uint32_t*)tab, n, (uint32_t*)out);
 }
 
 int rad_scalar_checkset(const void* idx, int k, const void* bm, int n,

@@ -22,10 +22,11 @@
 //     aligned, 4-byte loads otherwise);
 //   * tile_chunk_b1() starts the k-steps of one chunk for one warpgroup: 64
 //     rows of A against kTileN = 128 rows of B, into 64 s32 accumulators a
-//     thread;
-//   * acc_row() / acc_col() give the (row, column) in that 64 x 128 tile of
-//     accumulator i of a thread, so an epilogue (a distance, a bucket max,
-//     a running best) can sit on the accumulators directly.
+//     thread (or 256 rows of B into 128);
+//   * acc_row() / acc_col() give the (row, column) in that 64 x 128 (or
+//     64 x 256) tile of accumulator i of a thread, so an epilogue (a
+//     distance, a bucket max, a running best) can sit on the accumulators
+//     directly.
 // wgmma is asynchronous: wgmma_fence() before the first product of a batch,
 // wgmma_commit() after the last, wgmma_wait<0>() and fence_accumulators()
 // before the accumulators are read or the operands' tiles are overwritten.
@@ -156,6 +157,42 @@ __device__ __forceinline__ void stage_chunk(uint32_t tile,
   }
 }
 
+// stage_chunk for kRows rows with every copy a cp.async, called by kThreads
+// threads (a multiple of 128): all of it completes with the caller's
+// cp.async group, so a producer keeps chunks in flight at any row width.
+// Rows that are not 16-byte aligned take 4-byte copies (zero fill past the
+// data), unrolled: warp p copies rows p, p + kThreads / 32, ..., lane c
+// word w0 + c of each; a row's swizzle is one of two values, so a copy
+// costs its pointer step and the copy itself.
+template <int kRows, int kThreads>
+__device__ __forceinline__ void stage_chunk_async(
+    uint32_t tile, const uint32_t* __restrict__ src, int n_rows, int w,
+    int r0, int w0, bool vec, int tid) {
+  constexpr int kWarps = kThreads / 32;
+  static_assert(kWarps % 4 == 0 && kRows % kWarps == 0,
+                "a warp's rows alternate between two swizzles");
+  if (vec) {
+    stage_chunk(tile, src, n_rows, w, r0, w0, kRows, true, tid, kThreads);
+    return;
+  }
+  const int c = tid & 31;
+  const int p = tid >> 5;
+  const uint32_t lane = (c & 3) << 2;
+  const uint32_t sw0 = (((c >> 2) ^ (p & 7)) << 4) | lane;
+  const uint32_t sw1 = (((c >> 2) ^ ((p + kWarps) & 7)) << 4) | lane;
+  const uint32_t base = tile + p * kChunkBytes;
+  // rows p + kWarps * i with i < `live` / kWarps hold data for this lane
+  const int live = w0 + c < w ? n_rows - r0 - p : 0;
+  const uint32_t* from = src + (size_t)(r0 + p) * w + w0 + c;
+  const size_t step = (size_t)kWarps * w;
+#pragma unroll
+  for (int i = 0; i < kRows / kWarps; ++i, from += step) {
+    const bool valid = kWarps * i < live;
+    cp_async4(base + i * kWarps * kChunkBytes + ((i & 1) ? sw1 : sw0),
+              valid ? from : src, valid ? 4 : 0);
+  }
+}
+
 // ---- the product ----------------------------------------------------------
 
 // Descriptor of a K-major tile of 128-byte rows in the 128-byte swizzle:
@@ -180,9 +217,10 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // Keeps the compiler from reading accumulators before wgmma_wait.
-__device__ __forceinline__ void fence_accumulators(int (&d)[kAccRegs]) {
+template <int kRegs>
+__device__ __forceinline__ void fence_accumulators(int (&d)[kRegs]) {
 #pragma unroll
-  for (int i = 0; i < kAccRegs; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < kRegs; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 #define RAD_MMA_D8(d, o)                                            \
@@ -207,8 +245,33 @@ __device__ __forceinline__ void fence_accumulators(int (&d)[kAccRegs]) {
       : RAD_MMA_D64(d)                                                      \
       : "l"(desc_a), "l"(desc_b), "r"(scale_d))
 
+#define RAD_MMA_D128(d)                                                 \
+  RAD_MMA_D64(d), RAD_MMA_D8(d, 64), RAD_MMA_D8(d, 72), RAD_MMA_D8(d, 80), \
+      RAD_MMA_D8(d, 88), RAD_MMA_D8(d, 96), RAD_MMA_D8(d, 104),            \
+      RAD_MMA_D8(d, 112), RAD_MMA_D8(d, 120)
+// The same with n = 256: 128 s32 accumulators a thread.
+#define RAD_MMA_WGMMA_N256(TYPES, d, desc_a, desc_b, scale_d)              \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned." TYPES " "                            \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "  \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "  \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "  \
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "  \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "  \
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "  \
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, " \
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, " \
+      "%127}, %128, %129, p;\n"                                            \
+      "}\n"                                                                \
+      : RAD_MMA_D128(d)                                                    \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+
 // acc[i] (+)= popc(A[row] & B[col]) over 256 bits: 64 rows of the tile
-// behind desc_a, 128 rows of the tile behind desc_b.
+// behind desc_a, 128 rows of the tile behind desc_b (or 256 rows, with 128
+// accumulators a thread).
 __device__ __forceinline__ void wgmma_b1(int (&acc)[kAccRegs],
                                          uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
@@ -216,11 +279,19 @@ __device__ __forceinline__ void wgmma_b1(int (&acc)[kAccRegs],
                      scale_d);
 }
 
+__device__ __forceinline__ void wgmma_b1(int (&acc)[2 * kAccRegs],
+                                         uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  RAD_MMA_WGMMA_N256("m64n256k256.s32.b1.b1.and.popc", acc, desc_a, desc_b,
+                     scale_d);
+}
+
 // One K chunk for one warpgroup: the k-steps that hold words [0, kw) of the
-// chunk, A = 64 rows at shared address a_tile, B = 128 rows at b_tile.
-// `first` zeroes the accumulators. The caller brackets a batch of chunks
-// with wgmma_fence() and wgmma_commit().
-__device__ __forceinline__ void tile_chunk_b1(int (&acc)[kAccRegs],
+// chunk, A = 64 rows at shared address a_tile, B = 2 * kRegs rows (128 or
+// 256) at b_tile. `first` zeroes the accumulators. The caller brackets a
+// batch of chunks with wgmma_fence() and wgmma_commit().
+template <int kRegs>
+__device__ __forceinline__ void tile_chunk_b1(int (&acc)[kRegs],
                                               uint32_t a_tile,
                                               uint32_t b_tile, int kw,
                                               bool first) {

@@ -31,7 +31,8 @@ Each public wrapper runs its ``*_plain`` twin for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises. ``<wrapper>.launches`` counts
 kernel launches (the twin never counts); the approximate epilogue counts in
 ``tanimoto_bucketmin.approx_launches`` and
-``tanimoto_nn.approx_launches``.
+``tanimoto_nn.approx_launches``, the 1-NN kernel's wide instance also in
+``tanimoto_nn.wide_launches``.
 
 Inputs are int32 bit-views of packed uint32 words; popcounts may be passed
 precomputed (int32) to skip recounting.
@@ -387,6 +388,8 @@ def _nn_keys(q, db, q_pops, db_pops, epilogue: int, n_tile: int,
     _launch("rad_tanimoto_nn", q, db, q_pops, db_pops, epilogue,
             n_tile.bit_length() - 1, out=out)
     setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+    if db.shape[1] > NN_MAX_WORDS:
+        tanimoto_nn.wide_launches += 1
     return out
 
 
@@ -433,12 +436,16 @@ def tanimoto_nn(q: torch.Tensor, db: torch.Tensor, q_tile: int | None = None,
     :func:`default_n_tile`) must be a power of two dividing N; it changes
     the fast epilogue's result. ``q_tile`` and ``compute_dtype`` are the
     TPU kernel's tiling and MXU operand type: accepted, and they change no
-    result. Counts ``tanimoto_nn.launches`` / ``.approx_launches``."""
+    result. Counts ``tanimoto_nn.launches`` / ``.approx_launches``; a
+    launch of the kernel's wide instance (rows of more than
+    ``NN_MAX_WORDS`` words), from this wrapper or a probe's, also counts in
+    ``tanimoto_nn.wide_launches``."""
     return _tanimoto_nn(q, db, n_tile, q_pops, db_pops, approx, plain=False)
 
 
 tanimoto_nn.launches = 0
 tanimoto_nn.approx_launches = 0
+tanimoto_nn.wide_launches = 0
 
 
 def tanimoto_nn_plain(q: torch.Tensor, db: torch.Tensor,

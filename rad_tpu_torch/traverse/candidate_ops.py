@@ -33,8 +33,9 @@ table sized by the candidates, not by the library (in shared memory up
 to 8,192 candidates, else a per-call buffer: :func:`_dedup_table`), and
 keep no state between calls. The probes ``checkset`` and ``chain`` need
 only the distinct ids, which they find in a set of the same hash (keys
-only), spread over a thread-block cluster of 8 CTAs from
-:data:`_CLUSTER_MIN_K` candidates: :func:`_probe_set`.
+only): :func:`_probe_set`. All three probes spread the candidates over a
+thread-block cluster of 8 CTAs from :data:`_CLUSTER_MIN_K` candidates:
+:func:`_probe_cluster`.
 
 Each public wrapper runs its ``*_plain`` twin for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises. ``<wrapper>.launches``
@@ -144,27 +145,34 @@ def _dedup_table(k: int) -> tuple[int, bool]:
 
 
 # the probes' cluster: 8 CTAs (the portable maximum) from this many
-# candidates, one CTA below (see _probe_set). On an NVIDIA H100 80GB HBM3
+# candidates, one CTA below (see _probe_cluster). On an NVIDIA H100 80GB HBM3
 # at 700.00 W (python -m rad_tpu_torch.bench_scalar_probe --clusters) one
 # CTA is faster at 1,024 candidates and eight from 2,048 on
 _PROBE_CLUSTER = 8
 _CLUSTER_MIN_K = 2048
 
 
+def _probe_cluster(k: int, cluster: int | None = None) -> int:
+    """The CTAs of a probe's launch for ``k`` candidates: ``cluster`` (1 or
+    8), by default 8 from ``_CLUSTER_MIN_K`` candidates and 1 below."""
+    if cluster is None:
+        return _PROBE_CLUSTER if k >= _CLUSTER_MIN_K else 1
+    if cluster not in (1, _PROBE_CLUSTER):
+        raise ValueError(f"cluster = {cluster}: 1 or {_PROBE_CLUSTER} CTAs")
+    return cluster
+
+
 def _probe_set(k: int, cluster: int | None = None) -> tuple[int, int, bool]:
     """The ``checkset`` / ``chain`` set of distinct ids for ``k``
     candidates: ``(CTAs, log2 of its slots, whether it lies in shared
-    memory)``. ``cluster`` (1 or 8) defaults to 8 CTAs from
-    ``_CLUSTER_MIN_K`` candidates, 1 below. Slots are 4-byte keys, at least
-    ``4 * max(k, 1)`` of them in a power of two (the set is at most a
-    quarter full: fewer second probes than at half) and at least 32 a CTA;
+    memory)``, the CTAs by :func:`_probe_cluster`. Slots are 4-byte keys,
+    at least ``4 * max(k, 1)`` of them in a power of two (the set is at
+    most a quarter full: fewer second probes than at half) and at least 32
+    a CTA;
     the CTAs share them in their shared memory up to 8,192 candidates on
     one CTA and 65,536 on eight, above that the kernel takes a global
     buffer that the wrapper allocates."""
-    if cluster is None:
-        cluster = _PROBE_CLUSTER if k >= _CLUSTER_MIN_K else 1
-    if cluster not in (1, _PROBE_CLUSTER):
-        raise ValueError(f"cluster = {cluster}: 1 or {_PROBE_CLUSTER} CTAs")
+    cluster = _probe_cluster(k, cluster)
     log2 = max((4 * max(k, 1) - 1).bit_length(), cluster.bit_length() + 4)
     return cluster, log2, (4 << log2) // cluster <= _SMEM_BYTES
 
@@ -375,9 +383,17 @@ def scalar_gather(idx: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
         return scalar_gather_plain(idx, tab)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    return _gather_cuda(idx, tab, None)
+
+
+def _gather_cuda(idx, tab, cluster):
+    """:func:`scalar_gather`'s launch on ``cluster`` CTAs (None: by
+    :func:`_probe_cluster`)."""
+    dev = idx.device
+    k = idx.shape[0]
     out = torch.empty((1, 1), dtype=torch.int32, device=dev)
-    _launch("rad_scalar_gather", dev, idx.data_ptr(), idx.shape[0],
-            tab.data_ptr(), tab.shape[0], out.data_ptr())
+    _launch("rad_scalar_gather", dev, idx.data_ptr(), k, tab.data_ptr(),
+            tab.shape[0], _probe_cluster(k, cluster), out.data_ptr())
     scalar_gather.launches += 1
     return out
 

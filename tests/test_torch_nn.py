@@ -188,6 +188,32 @@ def test_nn_twin_matches_pallas_at_ragged_shapes(w, nq, nn):
     assert d[0] == 0 and d[nq - 1] == 0
 
 
+@pytest.mark.parametrize("approx", [False, True])
+def test_nn_matches_pallas_at_1025_words(approx):
+    """One word past the branch-free divide's range (the CUDA kernel's wide
+    instance with the IEEE divide), a few queries x 256 rows: exact
+    distances and ids array-equal to the interpret-mode Pallas kernel, the
+    fast epilogue within the 2e-3 bounds of tests/test_kernels.py."""
+    w = kernels.DIV_CHECKED_WORDS + 1
+    q, db = ragged_case(5, 256, w)
+    rd, ri = tanimoto_nn_pallas(jnp.asarray(_pad_rows(q, 8)), jnp.asarray(db),
+                                q_tile=8, n_tile=128, interpret=True,
+                                approx=approx)
+    rd, ri = np.asarray(rd)[:5], np.asarray(ri)[:5]
+    d, i = kernels.tanimoto_nn(*_cpu(q, db), n_tile=128, approx=approx)
+    if not approx:
+        np.testing.assert_array_equal(d.numpy(), rd)
+        np.testing.assert_array_equal(i.numpy(), ri)
+        assert d[0] == 0 and d[4] == 0
+        return
+    true = np.asarray(ref_matrix(jnp.asarray(q), jnp.asarray(db)))
+    rows = np.arange(5)
+    for dd, ii in ((d.numpy(), i.numpy()), (rd, ri)):
+        np.testing.assert_allclose(dd, true.min(axis=1), atol=2e-3)
+        np.testing.assert_allclose(true[rows, ii], true.min(axis=1),
+                                   atol=2e-3)
+
+
 def test_widest_rows_on_the_cpu():
     """Rows wider than the CUDA kernel's resident query tile
     (``NN_MAX_WORDS``) are the twin's on the CPU, and agree with the matrix
@@ -271,6 +297,43 @@ def test_cuda_nn_at_the_widest_rows(cuda, w):
                                            approx=True)
         assert float((fd - pfd).abs().max()) <= 2.0 ** -12
     assert kernels.tanimoto_nn.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [289, 290, 292, 1024, 1025, 2048])
+@pytest.mark.parametrize("nq,nn", [(130, 640), (1000, 64 * 1031)])
+def test_cuda_nn_wide_instance_every_epilogue(cuda, w, nq, nn):
+    """The wide instance (rows of more than ``NN_MAX_WORDS`` words) against
+    the twins: rows staged 4 bytes a copy (289, 290, 1,025 words) and 16
+    (292, 1,024, 2,048), the branch-free divide (up to 1,024) and the IEEE
+    one; Q and N off the 128-row query and 256-row db tiles (640 = 2.5 db
+    tiles: a last half wholly past N; 65,984: one 64 rows deep); one db
+    tile a block (130 x 640) and runs of 17 (1000 x 65,984 on 132 SMs). Exact,
+    floor and exact-pk array-equal, fast within 2^-12 (n_tile 128 where it
+    divides N), newton within 1e-6; each launch counted as wide."""
+    q, db = ragged_case(nq, nn, w)
+    tq, tdb = to_torch_packed(q, cuda), to_torch_packed(db, cuda)
+    before = kernels.tanimoto_nn.wide_launches
+    d, i = kernels.tanimoto_nn(tq, tdb, n_tile=64)
+    torch.cuda.synchronize()
+    pd, pi = kernels.tanimoto_nn_plain(tq, tdb, n_tile=64)
+    assert torch.equal(d, pd) and torch.equal(i, pi)
+    assert float(d[0]) == 0 and float(d[-1]) == 0
+    assert torch.equal(kernels.nn_floor(tq, tdb, 1, 64),
+                       kernels.nn_floor_plain(tq, tdb, 1, 64))
+    assert torch.equal(kernels.nn_epilogue_probe(tq, tdb, 64, "exact-pk"),
+                       kernels.nn_epilogue_probe_plain(tq, tdb, 64,
+                                                       "exact-pk"))
+    got = kernels.nn_epilogue_probe(tq, tdb, 64, "newton")
+    want = kernels.nn_epilogue_probe_plain(tq, tdb, 64, "newton")
+    assert float((got - want).abs().max()) <= 1e-6
+    n_tiles = [n_tile for n_tile in (64, 128) if nn % n_tile == 0]
+    for n_tile in n_tiles:  # 128: the 32-bit max a half tile
+        fd, _ = kernels.tanimoto_nn(tq, tdb, n_tile=n_tile, approx=True)
+        pfd, _ = kernels.tanimoto_nn_plain(tq, tdb, n_tile=n_tile,
+                                           approx=True)
+        assert float((fd - pfd).abs().max()) <= 2.0 ** -12
+    assert kernels.tanimoto_nn.wide_launches == before + 4 + len(n_tiles)
 
 
 @pytest.mark.gpu

@@ -16,9 +16,9 @@ summation order of k terms in [0, 1) lies within ``k * 2**-24 * ssum`` of
 the exact sum, which is the bound used. ``emit[n_new:]`` is undefined in
 the reference (it reads the output before writing it); the port pads it
 with -1. The ``gpu`` tests hold the CUDA kernels to the twins on the card
-(``ssum`` within one f32 ulp: both round a float64 sum once), on one CTA
-and on a cluster of eight, and check that a call allocates nothing sized
-by the library.
+(``ssum`` within one f32 ulp: both round a float64 sum once; the gather
+sum array-equal), on one CTA and on a cluster of eight, and check that a
+call allocates nothing sized by the library.
 """
 
 import json
@@ -164,6 +164,62 @@ def tpu_probe_outputs():
     assert rc == 0 and sorted(recorded) == [
         "chain_kernel", "checkset_kernel", "gather_kernel"]
     return recorded
+
+
+def _tpu_gather(x):
+    """The reference's ``gather`` kernel in interpret mode on the inputs
+    ``x`` (k, n from their shapes): its ``main`` runs with ``pallas_call``
+    wrapped so that every kernel it builds is captured and none runs
+    (``main`` reports each unlowerable and goes on); the captured gather,
+    whose loop bound is ``k``, then runs here on ``x``."""
+    k, n = x["idx"].shape[0], x["tab"].shape[0]
+    built = {}
+    orig = jax.experimental.pallas.pallas_call
+
+    def capture(kernel, *args, **kwargs):
+        built[kernel.__name__] = orig(kernel, *args, **kwargs)
+
+        def refuse(*operands):
+            raise RuntimeError("captured, not run")
+
+        return refuse
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jax.experimental.pallas, "pallas_call", capture)
+    try:
+        rc = ref_probe.main(["--interpret", "--k", str(k), "--n", str(n),
+                             "--reps", "1", "--chain-steps", "1"])
+    finally:
+        mp.undo()
+    assert rc == 0
+    out = built["gather_kernel"](jax.numpy.asarray(x["idx"]),
+                                 jax.numpy.asarray(x["tab"]))
+    return int(np.asarray(out)[0, 0])
+
+
+@pytest.mark.parametrize("k", [1, 4097, 8193])
+def test_gather_twin_matches_tpu_gather_off_round_sizes(k):
+    """k off the kernels' rounds (4,096 candidates a CTA) and clusters: the
+    twin, the interpret-mode Pallas ``gather`` and the serial model give the
+    same int32."""
+    n = 1 << 13
+    x = _inputs(k, n)
+    got = int(ops.scalar_gather(torch.from_numpy(x["idx"]),
+                                torch.from_numpy(x["tab"])))
+    assert got == _tpu_gather(x) == _serial_model(**x)["gather"]
+
+
+@pytest.mark.parametrize("k,cluster", [(0, 1), (1, 1),
+                                       (ops._CLUSTER_MIN_K - 1, 1),
+                                       (ops._CLUSTER_MIN_K, 8), (65537, 8)])
+def test_probe_cluster_by_k(k, cluster):
+    """Every probe's launch, ``gather``'s too: one CTA below 2,048
+    candidates, a cluster of eight from 2,048; the set's CTAs agree."""
+    assert ops._CLUSTER_MIN_K == 2048
+    assert ops._probe_cluster(k) == cluster == ops._probe_set(k)[0]
+    assert ops._probe_cluster(k, 1) == 1 and ops._probe_cluster(k, 8) == 8
+    with pytest.raises(ValueError, match="cluster"):
+        ops._probe_cluster(k, 2)
 
 
 def test_twins_match_interpret_mode_tpu_probes(tpu_probe_outputs):
@@ -385,3 +441,41 @@ def test_entry_point_prints_the_metric_line(cuda, capsys):
     assert all(line[key] > 0 for key in ("gather_ns", "checkset_ns",
                                          "chain_ns", "breakeven_ns"))
     assert ops.scalar_chain.launches == before + 4 * (1 + 3)
+
+
+def _gather_case(kind, k, n):
+    """The benchmark's inputs at ``k``, ``n`` changed as ``kind`` says;
+    "wrapping" draws the table over all of int32, so the sum wraps."""
+    if kind == "wrapping":
+        x = _inputs(k, n)
+        x["tab"] = np.random.default_rng(k).integers(
+            -2 ** 31, 2 ** 31, size=(n, 1), dtype=np.int32)
+        return x
+    return _case(kind, k, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [32, 1 << 20])
+@pytest.mark.parametrize("k", [1, 2047, 2048, 8193, 32769, 65537])
+@pytest.mark.parametrize("kind", ["defaults", "one id", "last id",
+                                  "out of range", "wrapping"])
+def test_cuda_gather_equals_twin_on_both_instances(cuda, kind, k, n):
+    """``gather`` by the wrapper's choice and on 1 and 8 CTAs, twice each,
+    array-equal to its twin: k on both sides of the cluster's threshold and
+    of a cluster round (32,768 candidates), ids out of range skipped, sums
+    that wrap; a call allocates its one output and nothing sized by n."""
+    t = _on(_gather_case(kind, k, n), cuda)
+    want = ops.scalar_gather_plain(t["idx"], t["tab"])
+    before = ops.scalar_gather.launches
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    got = ops.scalar_gather(t["idx"], t["tab"])
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(cuda) - base <= 512
+    assert torch.equal(got, want)
+    for cluster in (1, 8, 8, 1):
+        got = ops._gather_cuda(t["idx"], t["tab"], cluster)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), cluster
+    assert ops.scalar_gather.launches == before + 5
