@@ -63,14 +63,25 @@ Phases, one status line each (plus detail lines):
    ``benchmarks/bench_probe_sweep.py``'s qblock:16 point): (a) the library;
    (b) ``HNSWIndex.build(probes=16, probe_csize=8192, probe_sample=16,
    probe_granularity="qblock", probe_min_n=0)`` with both Tanimoto kernels
-   launched and layer 0 probed; (c) edge recall@10 and ``index.search``
-   recall@10 at ef 32 and 128 over 500 member queries against brute force,
-   each within its bound of the reference's recorded value; (d) ``prime``
+   launched and layer 0 probed (selection streamed into the scan); (c)
+   edge recall@10 and ``index.search`` recall@10 at ef 32 and 128 over
+   500 member queries against brute force (the blocked scan, whose first
+   50 queries must equal the plain ``bruteforce_topk``'s), each within its
+   bound of the reference's recorded value; (d) ``prime``
    + ``make_device_run`` with the score table at batch 512, K1/K2 on, to
    1 % scored: at least half the true top-1000 found; (e) phase 4's 1M
    build again with ``bucket_approx=True``: at least 99 % of layer-0 slots
    equal; (f) a 32,768-row probed build on the card and on the CPU, both
-   granularities: edge-identical;
+   granularities: edge-identical; (g), run inside (c) on the 10M graph,
+   the two-stage prefix screen of ``search_device`` with 6c's queries and
+   truth at ``rad_tpu_torch.bench_prefix``'s configs (0:0, 128:32,
+   128:64, 256:32, 256:64; ef 64, E = 4), 128:128 and 1024:128: recall@10
+   and queries/s each; the full-width screen keeping E·M0 = 128 giving
+   the unscreened ids and distances exactly, every query that 128:128
+   moves searched again alone with both beam loops replayed
+   (``bench_prefix.full_keep_witness``: the batch's results, and the move
+   explained by a tie), and 128:32 keeping at least 0.9 of the
+   unscreened ids;
 7. the 1-NN sweep of the repo's benchmark problem, 2048 queries x
    1,048,576 rows x 1024 bits (``random_fingerprints``, density 0.1,
    seed 0; the queries drawn with seed 1, not from the library), after a
@@ -101,7 +112,27 @@ Phases, one status line each (plus detail lines):
    equal to 5a's solo run; (d) ``RADTraverser(order_log_spill=<file>)``
    with a 1,024-id device ring: the spilled order equals phase 4's; (e)
    ``make_device_run`` over the bit-packed adjacency (20-bit fields): the
-   order of 5c.
+   order of 5c;
+9. the port's other forms of the single-device facade, on phase 4's
+   library and graph: (a) the 1M library built cluster-probed (probes 16
+   of 8192, sample 16, ``probe_min_n=0``; selection streamed into the
+   scan, the port's only probed path) twice, the second time with the
+   peak of ``torch.cuda.max_memory_allocated`` taken over each step alone
+   (bisection, scans, selection, symmetrization): edge-identical on every
+   layer, both Tanimoto kernels launched by each; the seconds per stage,
+   the build's peak beside the ``(n_pad + 1) * k * 8`` bytes of the
+   candidate tables it never allocates, and the step that sets the peak
+   printed; (b) the graph, keyed by node id,
+   saved as the v2 serving file (``save(exclude_vectors=True,
+   slim=True)``) and written again member by member in 2^18-row chunks
+   through ``NpzStreamWriter``: both load (``mmap=True``) to the graph's
+   neighbors, derived keys and levels and ``levels_stats``; (c)
+   ``HNSWIndex.build(backend="host")`` on 5,000 rows (M = 16,
+   ``expansion_add`` 128), searched on the card and by ``search_hnsw`` on
+   the host over 200 held-out rows: mean top-5 distances within 0.02,
+   recall@10 at ef 128 at least 0.85 against brute force; (d)
+   ``smiles_fingerprints`` of 10,000 of phase 4's store strings, twice,
+   equal.
 
 Phase 2 also holds the three probes to their twins on the benchmark's
 inputs (8,192 candidates over 2^20 rows); ``gather`` on one CTA and on a
@@ -114,8 +145,9 @@ set, every bit clear), the inputs unmodified; it times each probe eagerly
 against its twin, by CUDA-graph replay and on the host's clock, and on 1
 against 8 CTAs.
 
-The last three lines are the card's ``nvidia-smi`` line, a JSON object
-describing each kernel, and ``{"ok": true, "device": {...}}``. Any failed
+The last four lines are the whole run's seconds, the card's
+``nvidia-smi`` line, a JSON object describing each kernel, and ``{"ok":
+true, "device": {...}}``. Any failed
 check exits non-zero before those lines; so does a machine without CUDA.
 The script imports nothing of JAX.
 """
@@ -123,6 +155,7 @@ The script imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -135,14 +168,22 @@ import numpy as np
 import torch
 
 from rad_tpu_torch import (HNSWIndex, _cuda, bench, bench_candidates,
-                           bench_kernel_variants, bench_scalar_probe,
-                           create_local_traverser, profiling)
+                           bench_kernel_variants, bench_prefix,
+                           bench_scalar_probe, create_local_traverser,
+                           profiling)
+from rad_tpu_torch.build import exact, probe
 from rad_tpu_torch.build.exact import build_hnsw_exact
+from rad_tpu_torch.build.reference import search_hnsw
+from rad_tpu_torch.graph.storage import (ArangeKeys, DerivedLevels,
+                                         HNSWGraph, NpzStreamWriter)
 from rad_tpu_torch.fp import kernels
 from rad_tpu_torch.fp.pack import (popcount_rows, random_fingerprints,
+                                   smiles_fingerprint, smiles_fingerprints,
                                    to_torch_packed)
-from rad_tpu_torch.fp.tanimoto import (tanimoto_distance,
+from rad_tpu_torch.fp.tanimoto import (bruteforce_topk, tanimoto_distance,
                                        tanimoto_rows_to_target)
+from rad_tpu_torch.search.visited import (use_dense_visited,
+                                          visited_capacity_for)
 from rad_tpu_torch.store import InMemorySmilesStore
 from rad_tpu_torch.synthetic import make_library, make_receptor_tables
 from rad_tpu_torch.traverse import candidate_ops
@@ -220,6 +261,18 @@ N10 = 10_000_000         # phase 6's library
 REF_RECALL = {"edge": (0.558, 0.03), "ef32": (0.7064, 0.03),
               "ef128": (0.9000, 0.03)}
 EDGE_REF_TOL = 0.01
+# phase 6g: bench_prefix's configs (prefix bits:keep; 0:0 unscreened) at ef
+# 64 and E = 4
+PREFIX_CONFIGS = bench_prefix.parse_configs(bench_prefix.CONFIGS)
+PREFIX_EF, PREFIX_E = 64, 4
+TRUTH_SAMPLE = 50        # phase 6c: queries held to the plain brute force
+# phase 9a: phase 4's library, built cluster-probed (selection streamed
+# into the scan)
+PROBED_1M = dict(probes=16, probe_csize=8192, probe_sample=16,
+                 probe_min_n=0)
+CHUNK_ROWS = 1 << 18     # phase 9b: NpzStreamWriter's chunk
+HOST_N = 5000            # phase 9c: the host builder's slice
+N_SMILES = 10_000        # phase 9d
 NQ, NN = 2048, 1 << 20   # phase 7: the repo's benchmark problem
 PROBE_K, PROBE_N = 8192, 1 << 20   # the scalar-loop probes' problem
 PANEL_T = 43             # phase 8b: a DUDE-Z sized receptor panel
@@ -1197,6 +1250,82 @@ def _graph_recall(index, q, qidx, truth) -> dict:
     return got
 
 
+def _prefix_screen(g, q, truth, dev) -> None:
+    """6g: the two-stage prefix screen on the 10M graph, 6c's queries and
+    truth. Keeping the whole wave (E·M0) only reorders each wave: over
+    the full row width that order is the distance order and the search
+    must be the unscreened one, ids and distances; at 128 bits each query
+    whose result moves must be explained by a tie
+    (``bench_prefix.full_keep_witness``). 128:32 must keep >= 0.9 of the
+    unscreened ids."""
+    t0 = time.perf_counter()
+    full = PREFIX_E * 2 * g.connectivity
+    width = 32 * np.asarray(g.packed).shape[1]
+    res = bench_prefix.sweep(g, q, truth, PREFIX_CONFIGS + [(128, full),
+                                                            (width, full)],
+                             10, PREFIX_EF, PREFIX_E, dev)
+    base = res[0]
+    check(base["prefix_bits"] == 0, "6g: the first config is not 0:0")
+    for r in res:
+        overlap = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / 10
+                                 for a, b in zip(r["ids"], base["ids"])]))
+        same = float(np.mean((r["dists"] == base["dists"]).all(1)))
+        print(f"[6g prefix] {r['prefix_bits']}:{r['keep']} ef "
+              f"{PREFIX_EF} E {PREFIX_E}: recall@10 {r['recall']:.4f}, "
+              f"{r['qps']:,.0f} queries/s ({r['seconds']:.3f} s for "
+              f"{len(q)}), id overlap with 0:0 {overlap:.4f}, queries with "
+              f"0:0's distances {same:.4f}", flush=True)
+        if (r["prefix_bits"], r["keep"]) == (128, 32):
+            check(overlap >= 0.9, f"6g: 128:32 keeps {overlap:.4f} of the "
+                  f"unscreened ids (< 0.9)")
+    check(np.array_equal(res[-1]["dists"], base["dists"])
+          and np.array_equal(res[-1]["ids"], base["ids"]),
+          f"6g: the {width}-bit screen keeping E*M0 = {full} is not the "
+          f"unscreened search")
+    _full_keep_ties(g, q, res[-2], base, full, dev)
+    print(f"[6g prefix] the {width}-bit screen keeping E*M0 = {full} gives "
+          f"the unscreened ids and distances exactly; 6g "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _full_keep_ties(g, q, r, base, full: int, dev) -> None:
+    """6g: every query whose full-keep result ``r`` (a prefix screen
+    keeping E·M0) differs from the unscreened one, searched again alone with both loops replayed: the
+    same results as in the batch, and the move explained by a tie."""
+    moved = np.flatnonzero(~((r["dists"] == base["dists"]).all(1)
+                             & (r["ids"] == base["ids"]).all(1)))
+    if not len(moved):
+        print(f"[6g ties] {r['prefix_bits']}:{full} gives the unscreened "
+              f"ids and distances on every query", flush=True)
+        return
+    n = len(g)
+    # the batch of 500 took the hashed visited set: so do these queries
+    cap = (None if use_dense_visited(len(q), n)
+           else visited_capacity_for(PREFIX_EF, 2 * g.connectivity, n))
+    t0 = time.perf_counter()
+    bits = r["prefix_bits"]
+    found, (da, ia), (db, ib) = bench_prefix.full_keep_witness(
+        g, q[moved], bits, 10, PREFIX_EF, PREFIX_E, dev,
+        visited_capacity=cap)
+    check(np.array_equal(da, base["dists"][moved])
+          and np.array_equal(ia, base["ids"][moved])
+          and np.array_equal(db, r["dists"][moved])
+          and np.array_equal(ib, r["ids"][moved]),
+          "6g: the moved queries searched alone end elsewhere than in the "
+          "batch")
+    lines = []
+    for j, w in zip(moved.tolist(), found):
+        check(w["fault"] is None, f"6g: query {j}: {w['fault']}")
+        check(not w["same"], f"6g: query {j} did not move when replayed")
+        lines.append(f"query {j}: " + (
+            f"first expands other ids at iteration {w['step']}, tied at "
+            f"distance(s) {w['tie']}" if w["step"] is not None else
+            "the same expansions, equal distances, tied ids reordered"))
+    print(f"[6g ties] {bits}:{full} moves {len(moved)} of {len(q)} queries, "
+          f"each by a tie ({time.perf_counter() - t0:.1f} s): "
+          + "; ".join(lines), flush=True)
+
+
 def phase_probed_10m(dev) -> dict:
     t0 = time.perf_counter()
     packed, true_scores = make_library(N10, seed=0, batch=1 << 20)
@@ -1231,10 +1360,27 @@ def phase_probed_10m(dev) -> dict:
     qidx = np.random.default_rng(17).choice(N10, 500, replace=False)
     q = packed[qidx]
     t0 = time.perf_counter()
-    _, truth = index.search(q, k=10, exact=True)
+    truth_d, truth = index.search(q, k=10, exact=True)
     t_truth = time.perf_counter() - t0
+    # the blocked scan draws its distances from the matrix kernel: a
+    # sample of the queries is held to the plain scan, torch alone
+    db = to_torch_packed(np.asarray(g.packed), dev)
+    t0 = time.perf_counter()
+    d_plain, i_plain = bruteforce_topk(
+        to_torch_packed(q[:TRUTH_SAMPLE], dev), db, 10)
+    t_plain = time.perf_counter() - t0
+    del db
+    keys_all = np.asarray(g.keys)
+    plain_keys = keys_all[i_plain.cpu().numpy()]
+    check(np.array_equal(plain_keys, truth[:TRUTH_SAMPLE])
+          and np.array_equal(d_plain.cpu().numpy(),
+                             truth_d[:TRUTH_SAMPLE]),
+          f"6c: the blocked brute force differs from the plain one on its "
+          f"first {TRUTH_SAMPLE} queries")
     print(f"[6c recall] 500 member queries (rng 17), brute-force truth "
-          f"{t_truth:.1f} s", flush=True)
+          f"{t_truth:.1f} s (blocked, matrix kernel); its first "
+          f"{TRUTH_SAMPLE} queries' ids and distances equal the plain "
+          f"bruteforce_topk's ({t_plain:.1f} s)", flush=True)
     got = _graph_recall(index, q, qidx, truth)
     edge_ref = REF_RECALL["edge"][0]
     print(f"[6c recall] edge recall@10 {got['edge']:.4f} is "
@@ -1244,6 +1390,7 @@ def phase_probed_10m(dev) -> dict:
     for name, (ref, tol) in REF_RECALL.items():
         check(abs(got[name] - ref) <= tol, f"10M {name} recall@10 "
               f"{got[name]:.4f} is not within {tol} of {ref}")
+    _prefix_screen(g, q, truth, dev)
 
     keys = np.asarray(g.keys)
     dg = tdev.prepare_device_graph(g, dev)
@@ -1814,12 +1961,219 @@ def phase_engine_variants(dev, ctx: dict) -> dict:
     return launches
 
 
+# phase 9a: the build's steps whose peaks of allocated memory are taken
+# alone (leaves: none calls another of them)
+PEAK_STEPS = ((probe, "bisect_clusters", "bisection"),
+              (exact, "_one_qblock_probed", "probed scan"),
+              (exact, "_one_qblock", "exact scan"),
+              (exact, "_select_neighbors", "selection"),
+              (exact, "_dist_rows", "selected distances"),
+              (exact, "_symmetrize", "symmetrization"))
+
+
+@contextlib.contextmanager
+def _step_peaks(dev, peaks: dict):
+    """Record in ``peaks`` each of :data:`PEAK_STEPS`' largest peak of
+    allocated memory over one call (the peak statistics reset before
+    each call)."""
+    def wrap(fn, name):
+        def peaked(*a, **kw):
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = fn(*a, **kw)
+            torch.cuda.synchronize(dev)
+            peaks[name] = max(peaks.get(name, 0),
+                              torch.cuda.max_memory_allocated(dev))
+            return out
+        return peaked
+
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in PEAK_STEPS]
+    for (mod, attr, fn), (_, _, name) in zip(saved, PEAK_STEPS):
+        setattr(mod, attr, wrap(fn, name))
+    try:
+        yield peaks
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def _streamed_build(dev, ctx: dict) -> None:
+    """9a: phase 4's library built cluster-probed, selection streamed into
+    the scan (the port's only probed path), twice: the second with each
+    step's peak memory taken alone, to find what sets the build's peak.
+    Edge-identical, both Tanimoto kernels launched in each."""
+    lib = ctx["library"]
+    out = []
+    for steps in (False, True):
+        _reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        stage, peaks = {}, {}
+        t0 = time.perf_counter()
+        with (_step_peaks(dev, peaks) if steps
+              else contextlib.nullcontext()):
+            g = build_hnsw_exact(lib, connectivity=16, seed=0, device=dev,
+                                 stage_times=stage, **PROBED_1M)
+        torch.cuda.synchronize()
+        out.append(dict(
+            graph=g, stage=stage, seconds=time.perf_counter() - t0,
+            base=base, peak=torch.cuda.max_memory_allocated(dev) - base,
+            peaks={k: v - base for k, v in peaks.items()},
+            launches=_counts("tanimoto_bucketmin", "tanimoto_matrix")))
+    a, b = out
+    for r in out:
+        check(0 in r["stage"]["probed_layers"], "9a: layer 0 did not probe")
+        for name, count in r["launches"].items():
+            check(count > 0, f"9a: {name} never launched in the build")
+    check(a["graph"].layer_sizes == b["graph"].layer_sizes,
+          "9a: layer sizes differ")
+    for l, (x, y) in enumerate(zip(a["graph"].neighbors,
+                                   b["graph"].neighbors)):
+        diff = int((x != y).sum())
+        check(diff == 0, f"9a: layer {l}: {diff} slots differ between the "
+              f"two builds")
+    g = a["graph"]
+    n_pad = -(-len(g) // 8192) * 8192
+    tables = (n_pad + 1) * 64 * 8
+    sg = a["stage"]
+    print(f"[9a streamed build] {len(lib):,}, M=16, probes "
+          f"{PROBED_1M['probes']} of {PROBED_1M['probe_csize']}: "
+          f"{a['seconds']:.2f} s (bisection {sg['bisection']:.2f}, probe "
+          f"tables {sg['probe_tables']:.2f}, candidates "
+          f"{sg['candidates']:.2f}, selection {sg['selection']:.2f}, "
+          f"symmetrization {sg['symmetrization']:.2f} s); peak "
+          f"{a['peak'] / 2**30:.3f} GiB over the {a['base'] / 2**30:.3f} "
+          f"GiB held before; layer 0's candidate tables, never allocated, "
+          f"would be (n_pad + 1) * k * 8 = {tables / 2**30:.3f} GiB; "
+          f"launches {a['launches']}", flush=True)
+    top = max(b["peaks"], key=b["peaks"].get)
+    print(f"[9a streamed build] again with each step's peak taken alone "
+          f"({b['seconds']:.2f} s), edge-identical on layers "
+          f"{g.layer_sizes}; peaks over the memory held before: "
+          + ", ".join(f"{k} {v / 2**30:.3f} GiB"
+                      for k, v in b["peaks"].items())
+          + f"; the build's peak {a['peak'] / 2**30:.3f} GiB is "
+          + (f"{top}'s" if b["peaks"][top] >= 0.99 * a["peak"]
+             else "set outside these steps"), flush=True)
+
+
+def _storage(ctx: dict) -> None:
+    """9b: phase 4's graph, keyed by node id as a serving file is, saved
+    slim and written again member by member in chunks: both files map
+    to the graph's neighbors, derived keys and levels, and its stats."""
+    graph = ctx["graph"]
+    ided = dataclasses.replace(graph, keys=np.arange(len(graph),
+                                                     dtype=np.int64))
+    stats = [vars(s) for s in graph.levels_stats()]
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            graph.save(os.path.join(tmp, "x.npz"), exclude_vectors=True,
+                       slim=True)
+            check(False, "9b: slim saved a graph without identity keys")
+        except ValueError:
+            pass
+        slim = os.path.join(tmp, "slim.npz")
+        t0 = time.perf_counter()
+        ided.save(slim, exclude_vectors=True, slim=True)
+        t_save = time.perf_counter() - t0
+        streamed = os.path.join(tmp, "streamed.npz")
+        t0 = time.perf_counter()
+        w = NpzStreamWriter(streamed)
+        for l, t in enumerate(graph.neighbors):
+            with w.member(f"neighbors_{l}", t.shape, t.dtype) as m:
+                for r0 in range(0, t.shape[0], CHUNK_ROWS):
+                    m.write(np.asarray(t[r0:r0 + CHUNK_ROWS]))
+        w.close({"ndim": graph.ndim, "connectivity": graph.connectivity,
+                 "n_layers": len(graph.neighbors), "exclude_vectors": True,
+                 "version": 2, "identity_keys": True, "derived_levels": True,
+                 "edges_per_layer": [s["edges"] for s in stats]})
+        t_stream = time.perf_counter() - t0
+        for path in (slim, streamed):
+            g = HNSWGraph.load(path, mmap=True)
+            check(isinstance(g.keys, ArangeKeys)
+                  and isinstance(g.levels, DerivedLevels),
+                  f"9b: {path} does not derive keys and levels")
+            check(np.array_equal(np.asarray(g.levels),
+                                 np.asarray(graph.levels)),
+                  "9b: derived levels differ")
+            check(g.get_node_ids_from_keys([0, len(g) - 1])
+                  == [0, len(g) - 1], "9b: derived keys differ")
+            for l, (a, b) in enumerate(zip(g.neighbors, graph.neighbors)):
+                check(np.array_equal(a, b), f"9b: layer {l} differs")
+            check([vars(s) for s in g.levels_stats()] == stats,
+                  "9b: levels_stats differ")
+        print(f"[9b storage] {len(graph):,} rows: save(slim) "
+              f"{os.path.getsize(slim) / 1e6:.1f} MB in {t_save:.2f} s; "
+              f"NpzStreamWriter in {CHUNK_ROWS:,}-row chunks "
+              f"{os.path.getsize(streamed) / 1e6:.1f} MB in {t_stream:.2f} s;"
+              f" both load (mmap) to the graph's neighbors, derived keys and "
+              f"levels and levels_stats", flush=True)
+
+
+def _host_builder(dev, ctx: dict) -> None:
+    """9c: HNSWIndex.build(backend="host") on a slice of phase 4's
+    library, searched on the card and on the host."""
+    lib = ctx["library"]
+    q = lib[HOST_N:HOST_N + 200]          # held out, the same library
+    index = HNSWIndex(ndim=1024, connectivity=16, expansion_add=128,
+                      device=dev)
+    index.add(np.arange(HOST_N), lib[:HOST_N])
+    t0 = time.perf_counter()
+    g = index.build(backend="host")
+    t_build = time.perf_counter() - t0
+    _check_graph(g)
+    d_dev, _ = index.search(q, k=5, expansion_search=64)
+    t0 = time.perf_counter()
+    d_host, _ = search_hnsw(g, q, k=5, expansion_search=64)
+    t_host = time.perf_counter() - t0
+    gap = abs(float(np.mean(d_dev)) - float(np.mean(d_host)))
+    check(gap < 0.02, f"9c: mean top-5 distance, card vs host, differs by "
+          f"{gap:.4f} (>= 0.02)")
+    _, truth = index.search(q, k=10, exact=True)
+    _, found = index.search(q, k=10, expansion_search=128)
+    recall = _recall(found, truth)
+    check(recall >= 0.85, f"9c: recall@10 {recall:.4f} at ef 128 (< 0.85)")
+    print(f"[9c host builder] {HOST_N:,} rows, M=16, expansion_add 128: "
+          f"build {t_build:.1f} s on the host, layers {g.layer_sizes}; mean "
+          f"top-5 distance {float(np.mean(d_dev)):.4f} on the card vs "
+          f"{float(np.mean(d_host)):.4f} by search_hnsw ({t_host:.2f} s); "
+          f"recall@10 {recall:.4f} at ef 128 against brute force",
+          flush=True)
+
+
+def _smiles(ctx: dict) -> None:
+    """9d: the hashed fingerprints of 10,000 of phase 4's store strings."""
+    strings = list(ctx["store"].get_smiles_batch(range(N_SMILES)).values())
+    t0 = time.perf_counter()
+    a = smiles_fingerprints(strings)
+    t1 = time.perf_counter()
+    b = smiles_fingerprints(strings)
+    t2 = time.perf_counter()
+    check(a.shape == (N_SMILES, 32) and np.array_equal(a, b),
+          "9d: smiles_fingerprints is not deterministic")
+    check(np.array_equal(a[7], smiles_fingerprint(strings[7])),
+          "9d: batch and single fingerprints differ")
+    print(f"[9d smiles] {N_SMILES:,} strings ({strings[0]!r} ...): "
+          f"{t1 - t0:.2f} s and {t2 - t1:.2f} s, equal", flush=True)
+
+
+def phase_port_forms(dev, ctx: dict) -> None:
+    t0 = time.perf_counter()
+    _streamed_build(dev, ctx)
+    _storage(ctx)
+    _host_builder(dev, ctx)
+    _smiles(ctx)
+    print(f"[9 forms] {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
     dev = torch.device("cuda:0")
+    t_start = time.perf_counter()
     try:
         smi = phase_device()
         timings = phase_kernels(dev)
@@ -1833,9 +2187,12 @@ def main() -> int:
         timings.update(nn_timings)
         launches.update(nn_launches)
         launches.update(phase_engine_variants(dev, context))
+        phase_port_forms(dev, context)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}"
+          f" s", flush=True)
     print(smi)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=k["source"],

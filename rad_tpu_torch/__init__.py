@@ -2,8 +2,9 @@
 kernels for NVIDIA Hopper (sm_90a).
 
 The counterpart of :mod:`rad_tpu` (JAX/Pallas): packed-fingerprint
-Tanimoto math, the exact all-pairs HNSW builder, ``.npz`` graph storage,
-and the score-guided best-first traversal behind ``HNSWIndex`` /
+Tanimoto math, the exact all-pairs HNSW builder (and the numpy host
+builder), ``.npz`` graph storage, the beam search, and the score-guided
+best-first traversal behind ``HNSWIndex`` /
 ``RADTraverser``. Module paths and public names mirror ``rad_tpu`` so each
 piece has an obvious counterpart. This package imports ``torch`` and
 numpy only — never ``jax`` and never ``rad_tpu`` (importing any

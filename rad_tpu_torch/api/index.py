@@ -11,9 +11,14 @@ The surface of ``rad_tpu.api.index.HNSWIndex`` (``add``/``build``/
 
 ``device`` picks where the build runs; ``None`` means the first CUDA
 device, and raises when torch sees none (pass ``device="cpu"`` to run the
-kernels' plain twins on the CPU). Both ``backend="auto"`` and ``"exact"`` run
-:func:`~rad_tpu_torch.build.exact.build_hnsw_exact`; the reference's host,
-native and beam builders are not ported.
+kernels' plain twins on the CPU). ``backend="exact"`` runs
+:func:`~rad_tpu_torch.build.exact.build_hnsw_exact` and ``"host"`` the
+numpy builder :func:`~rad_tpu_torch.build.reference.build_hnsw`; ``"auto"``
+is the exact builder on the index's device. That last is a deliberate
+difference: the reference's ``"auto"`` picks its accelerator builder only
+on its accelerator, and the native or numpy host builder elsewhere. The
+reference's batched beam (``"device"``) and native builders are not
+ported.
 """
 
 from __future__ import annotations
@@ -88,12 +93,19 @@ class HNSWIndex:
     # ---------------------------------------------------------------- build
     def build(self, backend: str | None = None, **kwargs) -> HNSWGraph:
         """Construct the graph from all added vectors (extra ``kwargs``
-        go to the builder)."""
+        go to the exact builder; the host builder takes none, as in the
+        reference)."""
         backend = backend or self.backend
-        if backend not in ("auto", "exact"):
+        if backend == "device":
             raise NotImplementedError(
-                f"build backend {backend!r} is not ported; 'auto'/'exact' "
-                f"run the exact all-pairs builder (ROADMAP Queue 1 item 11)")
+                "build backend 'device': the batched beam builder is not "
+                "ported (ROADMAP Queue 1, \"The other builders\")")
+        if backend == "native":
+            raise NotImplementedError(
+                "build backend 'native': the C++ host builder is not ported "
+                "(ROADMAP Queue 1, \"The native host path\")")
+        if backend not in ("auto", "exact", "host"):
+            raise ValueError(f"unknown build backend {backend!r}")
         if self._graph is not None:
             return self._graph
         if not self._pending_fps:
@@ -102,15 +114,22 @@ class HNSWIndex:
         keys = np.concatenate(self._pending_keys, axis=0)
         if len(np.unique(keys)) != len(keys):
             raise ValueError("duplicate keys (multi-key indexes unsupported)")
-        from rad_tpu_torch.build.exact import build_hnsw_exact
-
+        common = dict(keys=keys, connectivity=self.connectivity,
+                      expansion_add=self.expansion_add, ndim=self.ndim,
+                      seed=self.seed)
         t0 = time.perf_counter()
-        self._graph = build_hnsw_exact(
-            fps, keys=keys, connectivity=self.connectivity,
-            expansion_add=self.expansion_add, ndim=self.ndim, seed=self.seed,
-            device=self.device, **kwargs)
-        logger.info("built HNSW over %d vectors in %.2fs (exact, %s)",
-                    len(keys), time.perf_counter() - t0, self.device)
+        if backend == "host":
+            from rad_tpu_torch.build.reference import build_hnsw
+
+            self._graph = build_hnsw(fps, **common)
+        else:
+            from rad_tpu_torch.build.exact import build_hnsw_exact
+
+            self._graph = build_hnsw_exact(fps, device=self.device, **common,
+                                           **kwargs)
+        logger.info("built HNSW over %d vectors in %.2fs (%s, %s)",
+                    len(keys), time.perf_counter() - t0, backend,
+                    self.device)
         return self._graph
 
     @property
@@ -128,22 +147,28 @@ class HNSWIndex:
         """Batched k-NN by Tanimoto distance → ``(dists [B, k], keys [B,
         k])`` numpy arrays: brute force with ``exact=True``, else the graph
         beam search (:func:`rad_tpu_torch.search.knn.search_device`) with
-        ``expansion_search`` (default: the index's) on the index's device.
-        The reference's ``backend="native"`` host search and its prefix
-        screen are not ported."""
+        ``expansion_search`` (default: the index's) on the index's device,
+        with the two-stage prefix screen when ``prefix_filter`` is given.
+        The brute force scans the library in blocks of 2**14 rows once
+        ``len(graph) * B`` passes 2**26, as the reference does. The
+        reference's ``backend="native"`` host search is not ported."""
         if backend == "native" and not exact:
             raise NotImplementedError(
                 "backend='native': the C++ host search is not ported "
-                "(ROADMAP Queue 1 item 8)")
+                "(ROADMAP Queue 1, \"The native host path\")")
         queries = coerce_packed(queries, self.ndim)
         g = self.graph
         if exact:
             from rad_tpu_torch.fp.pack import to_torch_packed
-            from rad_tpu_torch.fp.tanimoto import bruteforce_topk
+            from rad_tpu_torch.fp.tanimoto import (bruteforce_topk,
+                                                   bruteforce_topk_blocked)
 
             q = to_torch_packed(queries, self.device)
             db = to_torch_packed(np.asarray(g.packed), self.device)
-            d, ids = bruteforce_topk(q, db, k)
+            if len(g) * queries.shape[0] > (1 << 26):
+                d, ids = bruteforce_topk_blocked(q, db, k, block=1 << 14)
+            else:
+                d, ids = bruteforce_topk(q, db, k)
         else:
             from rad_tpu_torch.search.knn import search_device
 
@@ -205,9 +230,12 @@ class HNSWIndex:
         self.graph.save(path)
 
     @classmethod
-    def load(cls, path: str, view: bool = True, **kwargs) -> "HNSWIndex":
+    def load(cls, path: str, view: bool = True,
+             exclude_vectors: bool = False, **kwargs) -> "HNSWIndex":
         """Load a persisted index; ``view=True`` memory-maps the arrays
-        (usearch ``Index(path=..., view=True)``)."""
+        (usearch ``Index(path=..., view=True)``). ``exclude_vectors`` is
+        accepted and unused, as in the reference: the memory map already
+        reads lazily."""
         graph = HNSWGraph.load(path, mmap=view)
         return cls.from_graph(graph, **kwargs)
 

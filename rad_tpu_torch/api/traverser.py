@@ -104,17 +104,28 @@ class RADTraverser:
         scoring_fn: Callable[[str], float] | None = None,
         deployment_mode: str = "local",
         smiles_store=None,
+        namespace: str = "rad",
         engine: str = "auto",
         batch_size: int = 32,
         frontier_capacity: int | None = None,
         log_capacity: int | None = None,
         buffer_capacity: int = 1 << 15,
         n_score_threads: int = 8,
+        worker_timeout: float = 60.0,
+        heartbeat_interval: float = 10.0,
+        n_workers: int | None = None,
         head_capacity: int | None | str = "auto",
         order_log_spill: bool | str = False,
         packed_adjacency: bool | int = False,
         device=None,
+        **kwargs,
     ) -> None:
+        """``namespace``, ``worker_timeout``, ``heartbeat_interval`` and
+        ``n_workers`` are the reference's host-engine parameters: accepted
+        in every mode, as there, and unused until that engine is ported.
+        ``redis_host`` / ``redis_port`` / ``redis_password`` (the original
+        rad's constructor) are dropped with a warning; any other keyword
+        raises ``TypeError``."""
         if scoring_fn is None:
             raise ValueError("scoring_fn is required")
         if deployment_mode != "local" or engine not in ("auto", "device"):
@@ -123,8 +134,19 @@ class RADTraverser:
                 f"only the local device engine is ported")
         if graph is None:
             raise ValueError("provide graph")
+        for k in ("redis_host", "redis_port", "redis_password"):
+            if k in kwargs:
+                kwargs.pop(k)
+                logger.warning(
+                    "%s ignored: rad-tpu has no Redis — traversal state is "
+                    "device-resident (see docs/MIGRATION.md)", k)
+        if kwargs:
+            raise TypeError(
+                f"unsupported RADTraverser kwargs for engine 'device': "
+                f"{sorted(kwargs)}")
         self.scoring_fn = scoring_fn
         self.deployment_mode = deployment_mode
+        self.namespace = namespace
         self.engine = "device"
         self.graph = graph
         self._primed = False

@@ -36,6 +36,7 @@ import torch
 from rad_tpu_torch.fp import kernels
 from rad_tpu_torch.fp.pack import (popcount_rows, random_fingerprints,
                                    to_torch_packed)
+from rad_tpu_torch.fp.tanimoto import intersections_bf16, unpack_to_dtype
 
 __all__ = ["cpu_tanimoto_rate", "unpack_to_dtype", "intersections_bf16",
            "matmul_min_dist", "event_ms", "main"]
@@ -62,26 +63,6 @@ def cpu_tanimoto_rate(db: np.ndarray, n_q: int = 64, reps: int = 3) -> float:
         d.min(axis=1)
         best = min(best, time.perf_counter() - t0)
     return n_q * db.shape[0] / best
-
-
-def unpack_to_dtype(packed: torch.Tensor,
-                    dtype=torch.bfloat16) -> torch.Tensor:
-    """``[..., W]`` words → ``[..., W*32]`` 0/1 of ``dtype``, LSB-first per
-    word (``rad_tpu.fp.tanimoto.unpack_to_dtype``)."""
-    shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
-    bits = (packed[..., :, None] >> shifts) & 1
-    return bits.reshape(*packed.shape[:-1], packed.shape[-1] * 32).to(dtype)
-
-
-def intersections_bf16(a_bits: torch.Tensor,
-                       b_bits: torch.Tensor) -> torch.Tensor:
-    """``[A, D] x [B, D]`` bf16 0/1 → ``[A, B]`` f32 intersection counts,
-    exact: on the card one bf16 tensor-core product summed and written in
-    f32; on the CPU the same product of the same values in f32."""
-    if a_bits.device.type == "cuda":
-        return torch.mm(a_bits, b_bits.T, out_dtype=torch.float32)
-    with kernels.exact_fp32_matmul():
-        return a_bits.float() @ b_bits.float().T
 
 
 def matmul_min_dist(db: torch.Tensor, q: torch.Tensor,

@@ -16,14 +16,20 @@ edge-identical to it:
 4. symmetrization: forward + reverse edges sorted by (destination,
    distance, source); each row keeps its distance-best ``cap`` entrants.
 
+On probed layers steps 2 and 3 stream, whatever ``stream_select`` says:
+each group of scanned query blocks goes straight through selection, and
+the ``[n_pad, k]`` candidate tables are never allocated. The reference
+builds the same graph either way and streams only past 6 GiB of tables.
+
 The reference's small-layer reduction is ``lax.approx_max_k``, which is an
 exact top-k everywhere but on a TPU; the port computes the exact stable
-top-k. The reference's sharded, streamed, chunked, spanned and bucketed
-forms (and its dispatch bounding) are not ported.
+top-k. The reference's sharded, chunked, spanned and bucketed forms (and
+its dispatch bounding) are not ported.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import time
 
@@ -45,9 +51,13 @@ __all__ = ["build_hnsw_exact"]
 INF = float("inf")
 
 # arguments of rad_tpu's builder whose forms this package does not carry,
-# with the ROADMAP Queue 1 item that holds each
-_UNPORTED = {"approx_recall": 7, "pairs_per_dispatch": 7, "use_pallas": 7,
-             "interpret": 7, "mesh": 12, "mesh_axis": 12}
+# with where the ROADMAP lists each
+_NOT_BY_DESIGN = "not ported by design"
+_MULTI_DEVICE = "Queue 1, \"Multi-device\""
+_UNPORTED = {"approx_recall": _NOT_BY_DESIGN,
+             "pairs_per_dispatch": _NOT_BY_DESIGN,
+             "use_pallas": _NOT_BY_DESIGN, "interpret": _NOT_BY_DESIGN,
+             "mesh": _MULTI_DEVICE, "mesh_axis": _MULTI_DEVICE}
 
 
 def _merge_topk(cat_d, cat_i, k: int):
@@ -156,16 +166,14 @@ def _one_qblock_probed(packed_cl, pops_cl, perm_cl, cols, q0: int, k: int,
     return best_d, best_i
 
 
-def _allpairs_topk_probed(packed_l, pops_l, n_real: int, k: int,
-                          q_block: int, csize: int, bucket: int | None,
-                          probes: int, probe_sample: int, seed: int,
-                          packed_host: np.ndarray,
-                          probe_granularity: str = "qblock",
-                          probe_width: int | None = None,
-                          bucket_approx: bool = False,
-                          times: dict | None = None):
+def _probed_blocks(packed_l, pops_l, n_real: int, k: int, q_block: int,
+                   csize: int, bucket: int | None, probes: int,
+                   probe_sample: int, seed: int, packed_host: np.ndarray,
+                   probe_granularity: str = "qblock",
+                   probe_width: int | None = None,
+                   bucket_approx: bool = False, times: dict | None = None):
     """Cluster-probed top-k: the subquadratic form of
-    :func:`_allpairs_topk`.
+    :func:`_allpairs_topk`, one query block at a time.
 
     Partitions the layer's ``n_real`` rows into ``C = ceil(n_real /
     csize)`` balanced clusters (:func:`~rad_tpu_torch.build.probe.
@@ -175,21 +183,25 @@ def _allpairs_topk_probed(packed_l, pops_l, n_real: int, k: int,
     clusters. Candidates are exact within the probed set. ``probe_width``
     pads the probe lists with dead (−1) probes, which change nothing.
 
-    Returns ``[N_pad, k]`` (dists, layer ids), ascending, INF/−1 tails —
-    :func:`_allpairs_topk`'s convention. ``times``, when given, gets the
+    Returns an iterator over the real query blocks in permuted order:
+    each item is the block's ``[q_block, k]`` (dists, layer ids),
+    ascending, INF/−1 tails (:func:`_allpairs_topk`'s convention), and its
+    rows' layer ids (−1 at pad positions). ``times``, when given, gets the
     seconds of the partition (``"bisection"``) and the probe lists
     (``"probe_tables"``) added.
     """
     from rad_tpu_torch.build.probe import (bisect_clusters, cluster_probes,
                                            qblock_probes)
 
-    n_pad = packed_l.shape[0]
     dev = packed_l.device
     if csize % q_block:
         raise ValueError(f"probe csize {csize} must be a multiple of "
                          f"q_block {q_block}")
     if k > csize:
         raise ValueError(f"candidates k={k} exceeds probe csize {csize}")
+    if probe_granularity not in ("qblock", "cluster"):
+        raise ValueError(
+            f"unknown probe_granularity {probe_granularity!r}")
     t0 = time.perf_counter()
     perm = bisect_clusters(packed_host, csize, seed=seed, dev_rows=packed_l)
     t1 = time.perf_counter()
@@ -197,13 +209,10 @@ def _allpairs_topk_probed(packed_l, pops_l, n_real: int, k: int,
         probe_tab = qblock_probes(packed_host, perm, csize, q_block, probes,
                                   sample=probe_sample, seed=seed + 1,
                                   device=dev)
-    elif probe_granularity == "cluster":
+    else:
         probe_tab = cluster_probes(packed_host, perm, csize, probes,
                                    sample=probe_sample, seed=seed + 1,
                                    device=dev)
-    else:
-        raise ValueError(
-            f"unknown probe_granularity {probe_granularity!r}")
     if probe_width is not None and probe_width > probe_tab.shape[1]:
         probe_tab = np.pad(probe_tab,
                            ((0, 0), (0, probe_width - probe_tab.shape[1])),
@@ -224,22 +233,64 @@ def _allpairs_topk_probed(packed_l, pops_l, n_real: int, k: int,
     # per-qblock lists index directly; per-cluster lists by q-block // qpc
     # (nq == C only when csize == q_block, where they agree)
     sdiv = 1 if probe_tab.shape[0] == nq else csize // q_block
-    # pads occupy the tail of permuted space: only real q-blocks are scanned
-    nq_real = -(-n_real // q_block)
-    # one trailing sentinel row absorbs the pad positions' writes
-    out_d = torch.full((n_pad + 1, k), INF, device=dev)
-    out_i = torch.full((n_pad + 1, k), -1, dtype=torch.int32, device=dev)
-    for qi in range(nq_real):
-        q0 = qi * q_block
-        bd, bpos = _one_qblock_probed(
-            packed_cl, pops_cl, perm_cl, probe_tab[qi // sdiv].tolist(), q0,
-            k, q_block, csize, bucket, bucket_approx)
-        rows = perm_cl[q0:q0 + q_block]
-        rows = torch.where(rows >= 0, rows, n_pad).long()
-        out_d[rows] = bd
-        out_i[rows] = torch.where(
-            bpos >= 0, perm_cl[torch.clamp(bpos, min=0).long()], -1)
-    return out_d[:n_pad], out_i[:n_pad]
+
+    def blocks():
+        # pads occupy the tail of permuted space: only real q-blocks scan
+        for qi in range(-(-n_real // q_block)):
+            q0 = qi * q_block
+            bd, bpos = _one_qblock_probed(
+                packed_cl, pops_cl, perm_cl, probe_tab[qi // sdiv].tolist(),
+                q0, k, q_block, csize, bucket, bucket_approx)
+            ids = torch.where(bpos >= 0,
+                              perm_cl[torch.clamp(bpos, min=0).long()], -1)
+            yield bd, ids, perm_cl[q0:q0 + q_block]
+
+    return blocks()
+
+
+def _select_probed(blocks, packed, pops, n_pad: int, k: int, q_block: int,
+                   m: int, heuristic_k: int, sel_block: int,
+                   times: dict | None = None, sync: bool = False):
+    """Diversity selection streamed into the probed scan (the reference's
+    ``select_stream``): each group of ``max(1, sel_block / q_block)`` of
+    :func:`_probed_blocks`' query blocks is selected in permuted row
+    order, ``sel_block`` rows at a time, and its ``sel`` / ``sel_d`` rows
+    scattered to their layer rows; pad positions go to a sentinel row.
+    The ``[n_pad, k]`` candidate tables never exist. Selection is per row,
+    so the grouping changes no result: :func:`_select_layer`'s ``(sel,
+    sel_d)`` over the tables the blocks make. ``times["selection"]`` gets
+    the selection's seconds, measured after a device synchronisation when
+    ``sync``."""
+    dev = packed.device
+    width = min(m, min(heuristic_k, k))
+    sel = torch.full((n_pad + 1, width), -1, dtype=torch.int32, device=dev)
+    sel_d = torch.full((n_pad + 1, width), INF, device=dev)
+    span = max(1, sel_block // q_block)
+    while group := list(itertools.islice(blocks, span)):
+        bd, ids, perm_rows = (torch.cat(x) for x in zip(*group))
+        del group
+        if sync and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for r0 in range(0, bd.shape[0], sel_block):
+            qi = perm_rows[r0:r0 + sel_block]
+            active = qi >= 0
+            safe_q = torch.where(active, qi, 0)
+            s = _select_neighbors(packed, pops, safe_q,
+                                  bd[r0:r0 + sel_block],
+                                  ids[r0:r0 + sel_block], m, heuristic_k,
+                                  active)
+            rows = torch.where(active, qi, n_pad).long()
+            sel[rows] = s
+            sel_d[rows] = _dist_rows(packed, pops, safe_q, s,
+                                     (s >= 0) & active[:, None])
+        del bd, ids
+        if sync and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if times is not None:
+            times["selection"] = (times.get("selection", 0.0)
+                                  + time.perf_counter() - t0)
+    return sel[:n_pad], sel_d[:n_pad]
 
 
 def _select_layer(packed, pops, cand_d, cand_id, n_real: int, m: int,
@@ -359,7 +410,7 @@ def build_hnsw_exact(
     workarounds that are not ported.
 
     ``probes`` switches large layers to the subquadratic cluster-probed
-    candidate stage (:func:`_allpairs_topk_probed`): ``probe_csize``-row
+    candidate stage (:func:`_probed_blocks`): ``probe_csize``-row
     clusters (default: the layer's column block), each query block
     scanning its ``probes`` nearest clusters by min distance over
     ``probe_sample`` sampled members. A layer probes when it has at least
@@ -367,8 +418,10 @@ def build_hnsw_exact(
     a cluster and the cluster is a whole number of q-blocks; a request
     that probes no layer logs a warning. ``probe_granularity`` ("qblock"
     / "cluster") and ``probe_width`` as in the reference.
-    ``stream_select`` "auto" and ``False`` keep the candidate tables
-    (streamed selection is bit-identical to it); ``True`` is not ported.
+    ``stream_select`` ("auto", True or False) is accepted for the
+    reference's signature and changes nothing: probed layers always
+    stream selection into the scan (:func:`_select_probed`), which builds
+    the graph of the reference's table path and of its streamed path.
 
     ``device`` is where the fingerprints are uploaded and every stage
     runs: the CUDA kernels on a CUDA device, their plain twins on the CPU.
@@ -383,20 +436,15 @@ def build_hnsw_exact(
     if bad:
         raise NotImplementedError(
             f"build_hnsw_exact: {bad} belong to forms of the reference "
-            f"builder that are not ported (ROADMAP Queue 1 item(s) "
-            f"{sorted({_UNPORTED[k] for k in bad})})")
+            f"builder that are not ported (ROADMAP: "
+            f"{'; '.join(sorted({_UNPORTED[k] for k in bad}))})")
     if unported:
         raise TypeError(f"unexpected arguments {sorted(unported)}")
     if symm_mode not in (None, "sort"):
         raise NotImplementedError(
             f"symm_mode={symm_mode!r}: only the 'sort' symmetrization is "
-            f"ported (ROADMAP Queue 1 item 7)")
-    if stream_select is True:
-        raise NotImplementedError(
-            "stream_select=True: the streamed scan+select is not ported "
-            "(ROADMAP Queue 1 item 7); 'auto' and False build the same "
-            "graph")
-    if stream_select not in ("auto", False):
+            f"ported; the reference's other forms are {_NOT_BY_DESIGN}")
+    if stream_select not in ("auto", True, False):
         raise ValueError(f"stream_select={stream_select!r}")
     device = resolve_device(device)
     packed = np.ascontiguousarray(packed, dtype=np.uint32)
@@ -490,35 +538,44 @@ def build_hnsw_exact(
             probed_layers.append(l)
 
         t0 = time.perf_counter()
-        part0 = _partition_seconds(times)
+        other0 = _other_stage_seconds(times)
+        sel0 = times["selection"]
         if use_probe:
-            cand_d, cand_id = _allpairs_topk_probed(
-                packed_l, pops_l, n_l, k, qb, csz, bkt, probes,
-                probe_sample, seed * 1_000_003 + 7919 * (l + 1),
-                packed[:n_l], probe_granularity, probe_width,
-                bucket_approx, times)
+            # selection streams into the scan and times itself
+            sel, sel_d = _select_probed(
+                _probed_blocks(packed_l, pops_l, n_l, k, qb, csz, bkt,
+                               probes, probe_sample,
+                               seed * 1_000_003 + 7919 * (l + 1),
+                               packed[:n_l], probe_granularity, probe_width,
+                               bucket_approx, times),
+                packed_l, pops_l, n_pad, k, qb, min(m, cap), heuristic_k,
+                sb, times, sync=stage_times is not None)
         else:
             cand_d, cand_id = _allpairs_topk(packed_l, pops_l, n_l, k, qb,
                                              cb, bkt, bucket_approx)
+            _sync_if(stage_times, device)
+            t_sel = time.perf_counter()
+            sel, sel_d = _select_layer(packed_l, pops_l, cand_d, cand_id,
+                                       n_l, min(m, cap), heuristic_k, sb)
+            del cand_d, cand_id
+            _sync_if(stage_times, device)
+            times["selection"] += time.perf_counter() - t_sel
         _sync_if(stage_times, device)
         t1 = time.perf_counter()
-        sel, sel_d = _select_layer(packed_l, pops_l, cand_d, cand_id, n_l,
-                                   min(m, cap), heuristic_k, sb)
-        del cand_d, cand_id
-        _sync_if(stage_times, device)
-        t2 = time.perf_counter()
         rows = _symmetrize(sel, sel_d, n_l, cap)
         neighbors.append(rows[:n_l].cpu().numpy())
-        t3 = time.perf_counter()
-        # the partition and the probe lists count as stages of their own
-        times["candidates"] += t1 - t0 - (_partition_seconds(times) - part0)
-        times["selection"] += t2 - t1
-        times["symmetrization"] += t3 - t2
+        t2 = time.perf_counter()
+        # the partition, the probe lists and the selection count as stages
+        # of their own
+        cand_s = t1 - t0 - (_other_stage_seconds(times) - other0)
+        times["candidates"] += cand_s
+        times["symmetrization"] += t2 - t1
         logger.info("layer %d (n=%d, %s%s): %.2fs candidates, %.2fs "
                     "selection, %.2fs symmetrization", l, n_l,
                     f"bucket {bkt}" if bkt else "matrix",
-                    f", {probes} probes of {csz}" if use_probe else "",
-                    t1 - t0, t2 - t1, t3 - t2)
+                    f", {probes} probes of {csz}, selection streamed"
+                    if use_probe else "",
+                    cand_s, times["selection"] - sel0, t2 - t1)
         del sel, sel_d, rows
 
     if probes is not None and not probed_layers:
@@ -540,8 +597,11 @@ def build_hnsw_exact(
     )
 
 
-def _partition_seconds(times: dict) -> float:
-    return times.get("bisection", 0.0) + times.get("probe_tables", 0.0)
+def _other_stage_seconds(times: dict) -> float:
+    """Seconds of the stages timed inside a layer's candidate stage: the
+    partition, the probe lists and the selection."""
+    return (times.get("bisection", 0.0) + times.get("probe_tables", 0.0)
+            + times.get("selection", 0.0))
 
 
 def _sync_if(stage_times, device) -> None:

@@ -12,6 +12,9 @@ from rad_tpu_torch.fp.pack import (
     popcount_rows,
     popcount_rows_np,
     random_fingerprints,
+    smiles_fingerprint,
+    smiles_fingerprints,
+    unpack_fingerprints,
 )
 from rad_tpu_torch.fp.tanimoto import (
     bruteforce_topk,
@@ -28,6 +31,9 @@ __all__ = [
     "popcount_rows",
     "popcount_rows_np",
     "random_fingerprints",
+    "smiles_fingerprint",
+    "smiles_fingerprints",
+    "unpack_fingerprints",
     "bruteforce_topk",
     "tanimoto_distance",
     "tanimoto_matrix",

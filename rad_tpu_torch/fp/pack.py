@@ -10,17 +10,22 @@ supports too few operations.
 
 from __future__ import annotations
 
+from typing import Iterable, Sequence
+
 import numpy as np
 import torch
 
 __all__ = [
     "packed_words",
     "pack_fingerprints",
+    "unpack_fingerprints",
     "coerce_packed",
     "popcount",
     "popcount_rows",
     "popcount_rows_np",
     "random_fingerprints",
+    "smiles_fingerprint",
+    "smiles_fingerprints",
     "to_torch_packed",
 ]
 
@@ -86,6 +91,22 @@ def coerce_packed(vectors: np.ndarray, n_bits: int) -> np.ndarray:
         f"{vectors.shape} dtype {vectors.dtype}")
 
 
+def unpack_fingerprints(packed: np.ndarray,
+                        n_bits: int | None = None) -> np.ndarray:
+    """Unpack ``[N, W] uint32`` back to a ``[N, n_bits]`` uint8 0/1
+    matrix (all ``W * 32`` bits when ``n_bits`` is None)."""
+    packed = np.asarray(packed, dtype=np.uint32)
+    if packed.ndim == 1:
+        return unpack_fingerprints(packed[None, :], n_bits)[0]
+    n, w = packed.shape
+    shifts = np.arange(32, dtype=np.uint32)
+    bits = ((packed[:, :, None] >> shifts) & 1).astype(np.uint8).reshape(
+        n, w * 32)
+    if n_bits is not None:
+        bits = bits[:, :n_bits]
+    return bits
+
+
 def to_torch_packed(packed: np.ndarray, device) -> torch.Tensor:
     """Upload ``[..., W] uint32`` words as their int32 bit-view on
     ``device``."""
@@ -142,3 +163,61 @@ def random_fingerprints(
             bits[empty, rng.integers(0, n_bits, size=int(empty.sum()))] = 1
         out[lo:hi] = pack_fingerprints(bits)
     return out
+
+
+def _fnv1a64(data: bytes) -> int:
+    """FNV-1a, 64 bits: the hash of the fallback fingerprinter."""
+    h = 0xCBF29CE484222325
+    for b in data:
+        h ^= b
+        h = (h * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+    return h
+
+
+def _hash_fingerprint_bits(smiles: str, n_bits: int,
+                           radius: int = 2) -> np.ndarray:
+    """The fingerprint used when RDKit is not importable: every byte
+    substring of length 1 to ``2 * radius + 1`` of the SMILES string
+    sets bit ``fnv1a64(substring) % n_bits`` (bit 0 when none is set).
+    Deterministic across processes, and similar strings share bits."""
+    bits = np.zeros(n_bits, dtype=np.uint8)
+    data = smiles.encode("utf-8")
+    max_len = 2 * radius + 1
+    for length in range(1, max_len + 1):
+        for i in range(len(data) - length + 1):
+            bits[_fnv1a64(data[i:i + length]) % n_bits] = 1
+    if not bits.any():
+        bits[0] = 1
+    return bits
+
+
+def smiles_fingerprint(smiles: str, n_bits: int = 1024,
+                       radius: int = 2) -> np.ndarray:
+    """Packed ``[W]`` uint32 fingerprint of one SMILES string: RDKit's
+    Morgan fingerprint when ``rdkit`` is importable (and parses the
+    string), else the hashed-substring fallback."""
+    try:  # pragma: no cover - only where rdkit is installed
+        from rdkit import Chem
+        from rdkit.Chem import rdFingerprintGenerator
+
+        mol = Chem.MolFromSmiles(smiles)
+        if mol is not None:
+            gen = rdFingerprintGenerator.GetMorganGenerator(radius=radius,
+                                                            fpSize=n_bits)
+            arr = np.zeros(n_bits, dtype=np.uint8)
+            for b in gen.GetFingerprint(mol).GetOnBits():
+                arr[b] = 1
+            return pack_fingerprints(arr)
+    except ImportError:
+        pass
+    return pack_fingerprints(_hash_fingerprint_bits(smiles, n_bits, radius))
+
+
+def smiles_fingerprints(smiles: Sequence[str] | Iterable[str],
+                        n_bits: int = 1024, radius: int = 2) -> np.ndarray:
+    """Packed ``[N, W]`` uint32 fingerprints of a batch of SMILES strings,
+    one :func:`smiles_fingerprint` each. ``rad_tpu`` hands batches of more
+    than 64 strings without RDKit to its multithreaded C++ fingerprinter,
+    which computes the same bits; this package has no native path yet."""
+    return np.stack([smiles_fingerprint(s, n_bits, radius)
+                     for s in smiles])

@@ -11,9 +11,11 @@ The storage model of :mod:`rad_tpu.graph.storage`, without JAX:
 
 Every array stays on the host; the traversal engine uploads what it needs
 (:func:`rad_tpu_torch.traverse.device.prepare_device_graph`). Files are
-the same ``.npz`` layout as ``rad_tpu`` writes: this package saves v1 and
-loads v1 and the v2 serving format, so a graph written by either package
-loads in the other.
+the same ``.npz`` layout as ``rad_tpu`` writes, v1 and the v2 serving
+format (identity keys and level-sorted levels derived instead of stored,
+edge counts in the meta), so a graph written by either package loads in
+the other. :class:`NpzStreamWriter` writes such a file member by member,
+in row chunks, for graphs too large to hold in host memory at once.
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["HNSWGraph", "LayerStats", "ArangeKeys", "DerivedLevels",
-           "host_keys_view", "neighbor_valid_mask", "FP_FORMAT_VERSION",
+__all__ = ["HNSWGraph", "LayerStats", "NpzStreamWriter", "ArangeKeys",
+           "DerivedLevels", "host_keys_view", "neighbor_valid_mask", "FP_FORMAT_VERSION",
            "ADJ_SENTINEL_U32"]
 
 # The fingerprint format version ``rad_tpu`` stamps into saved graphs
@@ -120,6 +122,80 @@ def host_keys_view(keys):
     """Host-indexable view of a graph's ``keys``: virtual keys pass
     through unmaterialized; anything else becomes numpy."""
     return keys if isinstance(keys, VirtualArray) else np.asarray(keys)
+
+
+class NpzStreamWriter:
+    """Write an uncompressed ``.npz`` member by member, each in row chunks
+    (ZIP_STORED with zip64), which :meth:`HNSWGraph.load` maps in place:
+
+        w = NpzStreamWriter(path)
+        with w.member("neighbors_0", (n, 32), np.int32) as m:
+            for chunk in chunks:          # [rows, 32] int32 pieces
+                m.write(chunk)
+        w.write_array("levels", levels)   # small members in one go
+        w.close(meta)                     # meta_json, then the directory
+    """
+
+    def __init__(self, path: str):
+        import zipfile
+
+        self._zip = zipfile.ZipFile(path, "w", zipfile.ZIP_STORED,
+                                    allowZip64=True)
+
+    class _Member:
+        def __init__(self, fp, shape, dtype):
+            self._fp = fp
+            self._rows = 0
+            self._shape = shape
+            self._dtype = np.dtype(dtype)
+
+        def write(self, chunk: np.ndarray) -> None:
+            chunk = np.ascontiguousarray(chunk, dtype=self._dtype)
+            lead = chunk.shape[0] if chunk.ndim else 1
+            if chunk.ndim != len(self._shape) or \
+                    chunk.shape[1:] != tuple(self._shape[1:]):
+                raise ValueError(f"chunk shape {chunk.shape} does not extend "
+                                 f"member shape {self._shape}")
+            self._fp.write(memoryview(chunk).cast("B"))
+            self._rows += lead
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, exc_type, exc, tb):
+            if exc_type is None and self._rows != self._shape[0]:
+                raise ValueError(
+                    f"member closed after {self._rows} rows; "
+                    f"declared {self._shape[0]}")
+            self._fp.close()
+            return False
+
+    def member(self, name: str, shape, dtype) -> "NpzStreamWriter._Member":
+        """Open member ``name`` for chunked writes (a context manager)."""
+        import zipfile
+
+        info = zipfile.ZipInfo(name + ".npy", date_time=(1980, 1, 1, 0, 0, 0))
+        info.compress_type = zipfile.ZIP_STORED
+        fp = self._zip.open(info, "w", force_zip64=True)
+        np.lib.format.write_array_header_2_0(
+            fp, {"descr": np.lib.format.dtype_to_descr(np.dtype(dtype)),
+                 "fortran_order": False, "shape": tuple(shape)})
+        return self._Member(fp, tuple(shape), dtype)
+
+    def write_array(self, name: str, array: np.ndarray) -> None:
+        array = np.asarray(array)
+        with self.member(name, array.shape, array.dtype) as m:
+            m.write(array)
+
+    def close(self, meta: dict | None = None) -> None:
+        """Write ``meta`` (with ``fp_format_version`` added when absent) as
+        the ``meta_json`` member and finish the archive."""
+        if meta is not None:
+            if "fp_format_version" not in meta:
+                meta = {**meta, "fp_format_version": FP_FORMAT_VERSION}
+            self.write_array("meta_json", np.frombuffer(
+                json.dumps(meta).encode(), dtype=np.uint8))
+        self._zip.close()
 
 
 def _mmap_npz_members(path: str):
@@ -296,14 +372,44 @@ class HNSWGraph:
         return [self._key_to_id[int(k)] for k in keys]
 
     # -------------------------------------------------------------- persist
-    def save(self, path: str, exclude_vectors: bool = False) -> None:
-        """Persist to an uncompressed ``.npz`` (format v1).
+    def save(self, path: str, exclude_vectors: bool = False,
+             slim: bool = False) -> None:
+        """Persist to an uncompressed ``.npz``: format v1, or v2 with
+        ``slim``.
 
         ``exclude_vectors=True`` omits the fingerprint matrix (a graph
         loaded from such a file answers graph queries but cannot compute
-        distances)."""
-        arrays = {"keys": np.asarray(self.keys),
-                  "levels": np.asarray(self.levels)}
+        distances). ``slim=True`` writes the v2 serving file on top of
+        that: no keys or levels members (the meta declares them derivable)
+        and the per-layer edge counts in the meta, so ``levels_stats``
+        never scans the adjacency. It requires ``exclude_vectors=True``,
+        identity keys (``keys[i] == i``) and levels that the layer sizes
+        give (the level-sorted ids), and raises ``ValueError`` otherwise.
+        """
+        if slim:
+            if not exclude_vectors:
+                raise ValueError(
+                    "slim=True is a serving-file mode and requires "
+                    "exclude_vectors=True")
+            if not isinstance(self.keys, ArangeKeys):
+                k = np.asarray(self.keys)
+                if not np.array_equal(k, np.arange(len(self),
+                                                   dtype=k.dtype)):
+                    raise ValueError(
+                        "slim=True requires identity keys (keys[i] == i); "
+                        "this graph's keys are not an arange — save "
+                        "without slim")
+            if not isinstance(self.levels, DerivedLevels):
+                expect = np.asarray(DerivedLevels(self.layer_sizes))
+                if not np.array_equal(np.asarray(self.levels), expect):
+                    raise ValueError(
+                        "slim=True requires level-sorted derived levels; "
+                        "this graph's levels member disagrees with its "
+                        "layer sizes — save without slim")
+        arrays = {}
+        if not slim:
+            arrays["keys"] = np.asarray(self.keys)
+            arrays["levels"] = np.asarray(self.levels)
         if not exclude_vectors:
             arrays["packed"] = np.asarray(self.packed)
             arrays["popcounts"] = np.asarray(self.popcounts)
@@ -314,9 +420,13 @@ class HNSWGraph:
             "connectivity": self.connectivity,
             "n_layers": len(self.neighbors),
             "exclude_vectors": bool(exclude_vectors),
-            "version": 1,
+            "version": 2 if slim else 1,
             "fp_format_version": FP_FORMAT_VERSION,
         }
+        if slim:
+            meta["identity_keys"] = True
+            meta["derived_levels"] = True
+            meta["edges_per_layer"] = [s.edges for s in self.levels_stats()]
         arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(),
                                             dtype=np.uint8)
         np.savez(path, **arrays)

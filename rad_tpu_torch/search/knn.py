@@ -14,6 +14,12 @@ a visited set — a dense ``[B, N]`` map while it fits
 :data:`~rad_tpu_torch.search.visited.DENSE_VISITED_BUDGET`, else the
 bounded id hash table of :mod:`rad_tpu_torch.search.visited`.
 
+With ``prefix_filter`` the wave goes through the reference's two-stage
+screen: Tanimoto on the first ``prefix_filter // 32`` words, gathered
+from a compact ``[N, pw]`` copy of the fingerprints, ranks the wave's
+``E·M0`` candidates; only the best ``keep`` get full-width distances and
+enter the merge, the rest are pruned for good.
+
 Tie rules: every ``lax.top_k`` is a stable ascending sort (ties keep the
 smaller index), and so is the beam merge. The reference sorts the merge
 with the unstable ``lax.sort``, so among equal distances its beam order
@@ -58,8 +64,13 @@ def _first_min(d):
 
 
 def _search_batch(packed, pops, dg, queries, k: int, ef: int,
-                  expand_width: int, visited_capacity: int | None):
-    """One batch of the search → ``(dists [B, k], node_ids [B, k])``."""
+                  expand_width: int, visited_capacity: int | None,
+                  prefix_keep: int = 0, prefix=None, prefix_pops=None):
+    """One batch of the search → ``(dists [B, k], node_ids [B, k])``.
+
+    ``prefix``/``prefix_pops`` (the compact ``[N, pw]`` prefix copy and
+    its popcounts) switch on the screen, which keeps ``prefix_keep`` of
+    each wave."""
     dev = packed.device
     n = packed.shape[0]
     b = queries.shape[0]
@@ -74,6 +85,11 @@ def _search_batch(packed, pops, dg, queries, k: int, ef: int,
     max_iters = (16 * ef) // max(e, 1) + 256
     q_pop = popcount_rows(queries)
     bidx = torch.arange(b, device=dev)
+    if prefix is not None:
+        pw = prefix.shape[1]
+        n_keep = min(prefix_keep, e * m0)
+        q_pref = queries[:, :pw].contiguous()
+        q_pref_pop = popcount_rows(q_pref)
 
     # ---- greedy descent through layers max_level..1 ----------------------
     ep = torch.zeros(b, dtype=torch.int64, device=dev)
@@ -147,6 +163,15 @@ def _search_batch(packed, pops, dg, queries, k: int, ef: int,
         else:
             visited, seen = hashset_check_insert_batch(visited, rows, valid)
             valid = valid & ~seen
+        if prefix is not None:
+            # stage 1: rank the wave by prefix Tanimoto and keep the best
+            # n_keep (lax.top_k: ties to the smaller position)
+            d_a = _query_dist(q_pref, q_pref_pop, prefix, prefix_pops, rows,
+                              valid)
+            d_a, ksel = torch.sort(d_a, dim=1, stable=True)
+            rows = rows.gather(1, ksel[:, :n_keep])
+            valid = torch.isfinite(d_a[:, :n_keep])
+        # full-width distances for the wave (stage 2 of the screen)
         d_n = _query_dist(queries, q_pop, packed, pops, rows, valid)
         new_ids = torch.where(valid, rows, -1)
         all_d = torch.cat([beam_d, d_n], 1)
@@ -178,6 +203,17 @@ def _prep(graph: HNSWGraph, device, packed_adjacency: bool | int = False):
     return cache[key]
 
 
+def _prefix_prep(graph: HNSWGraph, device, packed: torch.Tensor, pw: int):
+    """The compact ``[N, pw]`` prefix copy of ``packed`` (on ``device``)
+    and its popcounts, cached on the graph per device and per ``pw``."""
+    cache = graph.__dict__.setdefault("_prefix_prep", {})
+    key = (str(torch.device(device)), pw)
+    if key not in cache:
+        prefix = packed[:, :pw].contiguous()
+        cache[key] = (prefix, popcount_rows(prefix))
+    return cache[key]
+
+
 def search_device(
     graph: HNSWGraph,
     queries: np.ndarray,
@@ -200,15 +236,24 @@ def search_device(
     hash table at that size. ``packed_adjacency=True`` (or a field
     width) searches over the bit-packed neighbor table
     (:mod:`rad_tpu_torch.graph.adjpack`): the same results from
-    ``bits / 32`` of the adjacency memory. ``prefix_filter``/
-    ``prefix_keep`` are not ported.
+    ``bits / 32`` of the adjacency memory.
+
+    ``prefix_filter``: the number of leading fingerprint bits of the
+    two-stage screen (e.g. 128; ``max(1, prefix_filter // 32)`` words);
+    ``prefix_keep``: the candidates of each wave that get full-width
+    distances (default ``max(k, E·M0 / 4)``, at most ``E·M0``). A
+    heuristic that trades recall for speed (``python -m
+    rad_tpu_torch.bench_prefix`` measures it).
     """
-    if prefix_filter or prefix_keep:
-        raise NotImplementedError(
-            "prefix_filter/prefix_keep: the two-stage prefix screen is not "
-            "ported (ROADMAP Queue 1 item 8)")
     device = resolve_device(device)
     dg, packed, pops = _prep(graph, device, packed_adjacency)
+    screen = {}
+    if prefix_filter:
+        pw = max(1, int(prefix_filter) // 32)
+        prefix, prefix_pops = _prefix_prep(graph, device, packed, pw)
+        screen = dict(prefix_keep=prefix_keep or max(
+            k, (expand_width * dg.m0) // 4), prefix=prefix,
+            prefix_pops=prefix_pops)
     queries = np.atleast_2d(np.asarray(queries, np.uint32))
     q_all = torch.from_numpy(np.ascontiguousarray(queries).view(
         np.int32)).to(device)
@@ -220,7 +265,7 @@ def search_device(
     if pad:
         q_all = torch.cat([q_all, q_all[-1:].expand(pad, -1)])
     outs = [_search_batch(packed, pops, dg, q_all[lo:lo + chunk_size], k, ef,
-                          expand_width, visited_capacity)
+                          expand_width, visited_capacity, **screen)
             for lo in range(0, q_all.shape[0], chunk_size)]
     d = torch.cat([o[0] for o in outs])[:b]
     i = torch.cat([o[1] for o in outs])[:b]

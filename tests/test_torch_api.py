@@ -7,6 +7,7 @@ accelerator); both graphs go through ``.npz`` save/load, then
 ``get_best_molecules`` must return the same molecules.
 """
 
+import logging
 import os
 import subprocess
 import sys
@@ -84,10 +85,12 @@ def test_search_exact_matches_reference(library):
     np.testing.assert_array_equal(d, rd)
     np.testing.assert_array_equal(k, rk)
     assert k[0, 0] == keys[0] and d[0, 0] == 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="The native host path"):
         port.search(fps[:5], k=10, backend="native")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="The native host path"):
         rad_tpu_torch.HNSWIndex(device="cpu").build(backend="native")
+    with pytest.raises(NotImplementedError, match="The other builders"):
+        rad_tpu_torch.HNSWIndex(device="cpu").build(backend="device")
 
 
 def test_traverser_views(library):
@@ -194,6 +197,72 @@ def test_resolve_device_says_when_it_picks_the_cpu(monkeypatch):
     assert resolve_device(None) == torch.device("cuda:0")
 
 
+def test_load_exclude_vectors(library, tmp_path):
+    """``HNSWIndex.load(path, exclude_vectors=True)`` (docs/MIGRATION.md)
+    returns an index on both packages: the keyword is accepted and
+    unused."""
+    keys, fps, _, _ = library
+    port = rad_tpu_torch.HNSWIndex(ndim=1024, connectivity=8, device="cpu")
+    port.add(keys, fps)
+    path = str(tmp_path / "index.npz")
+    port.save(path)
+    ref = rad_tpu.HNSWIndex.load(path, view=True, exclude_vectors=True)
+    got = rad_tpu_torch.HNSWIndex.load(path, view=True, exclude_vectors=True,
+                                       device="cpu")
+    assert isinstance(got, rad_tpu_torch.HNSWIndex) and len(got) == len(ref)
+    assert got.connectivity == ref.connectivity == 8
+    for a, b in zip(ref.graph.neighbors, got.graph.neighbors):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    _, k = got.search(fps[:3], k=5)
+    assert k[:, 0].tolist() == keys[:3].tolist()
+
+
+def _index_graph(library):
+    keys, fps, _, table = library
+    index = rad_tpu_torch.HNSWIndex(ndim=1024, connectivity=8, device="cpu")
+    index.add(keys, fps)
+    return index.graph, (lambda s: table[s])
+
+
+@pytest.mark.parametrize("kw", [
+    {"namespace": "x"}, {"n_workers": 2}, {"worker_timeout": 5.0},
+    {"heartbeat_interval": 1.0}], ids=lambda kw: next(iter(kw)))
+def test_traverser_takes_the_reference_keywords(library, kw):
+    """The reference's host-engine keywords build a local traverser on
+    both packages (inert on the device engine)."""
+    graph, score = _index_graph(library)
+    ref = rad_tpu.RADTraverser(graph=graph, scoring_fn=score, **kw)
+    t = rad_tpu_torch.RADTraverser(graph=graph, scoring_fn=score,
+                                   device="cpu", **kw)
+    assert t.engine == ref.engine == "device"
+    assert t.namespace == ref.namespace
+    t.shutdown()
+    ref.shutdown()
+
+
+def test_traverser_drops_redis_keywords_with_a_warning(library, caplog):
+    graph, score = _index_graph(library)
+    for pkg, on_cpu in ((rad_tpu, {}), (rad_tpu_torch, {"device": "cpu"})):
+        caplog.clear()
+        with caplog.at_level(logging.WARNING):
+            t = pkg.RADTraverser(graph=graph, scoring_fn=score,
+                                 redis_host="localhost", redis_port=6379,
+                                 **on_cpu)
+        warned = [r.getMessage() for r in caplog.records
+                  if r.levelno == logging.WARNING]
+        assert any("redis_host ignored" in m for m in warned), pkg
+        assert any("redis_port ignored" in m for m in warned), pkg
+        t.shutdown()
+
+
+def test_traverser_rejects_unknown_keywords(library):
+    graph, score = _index_graph(library)
+    for pkg, on_cpu in ((rad_tpu, {}), (rad_tpu_torch, {"device": "cpu"})):
+        with pytest.raises(TypeError, match="not_an_option"):
+            pkg.RADTraverser(graph=graph, scoring_fn=score, not_an_option=1,
+                             **on_cpu)
+
+
 def test_entry_points_default_to_the_card(library, monkeypatch):
     """With no card visible, the entry points given no device raise
     instead of running on the CPU."""
@@ -233,6 +302,8 @@ def test_port_never_loads_jax():
         import rad_tpu_torch.bench_scalar_probe, rad_tpu_torch.graph.adjpack
         import rad_tpu_torch.traverse.multi, rad_tpu_torch.traverse.spill
         import rad_tpu_torch.bench_mma_rate, rad_tpu_torch.bench_candidates
+        import rad_tpu_torch.bench_prefix, rad_tpu_torch.utils.profiling
+        import rad_tpu_torch.build.reference
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "rad_tpu",
                                             "bench", "benchmarks"))

@@ -15,7 +15,7 @@ import torch
 
 import bench as ref_bench
 from rad_tpu.fp import random_fingerprints
-from rad_tpu_torch import bench, bench_kernel_variants
+from rad_tpu_torch import bench, bench_kernel_variants, bench_prefix
 from rad_tpu_torch.fp import kernels
 from rad_tpu_torch.fp.pack import to_torch_packed
 
@@ -44,7 +44,8 @@ def test_unpack_to_dtype_matches_reference():
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
-@pytest.mark.parametrize("module", [bench, bench_kernel_variants])
+@pytest.mark.parametrize("module", [bench, bench_kernel_variants,
+                                    bench_prefix])
 def test_entry_points_need_a_card(module, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert module.main(["--n", "4096", "--q", "64"]) != 0
@@ -76,3 +77,21 @@ def test_cuda_matmul_path_equals_exact_nn():
     assert torch.equal(got, kernels.tanimoto_nn(q, db)[0])
     assert torch.equal(got, bench.matmul_min_dist(db.cpu(), q.cpu(),
                                                   1 << 13).to(dev))
+
+
+def test_bench_prefix_on_the_cpu(capsys):
+    """The prefix sweep on a small library when the CPU is asked for: the
+    reference's JSON line, one result a config, the unscreened search's
+    recall high on an exact graph."""
+    import json
+    assert bench_prefix.main(["--n", "1500", "--q", "32", "--n-bits", "256",
+                              "--connectivity", "8", "--configs",
+                              "0:0,128:16,64:64", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    line = json.loads(out[-1])
+    assert line["metric"] == "prefix_filter_sweep"
+    assert (line["n"], line["ef"]) == (1500, 64)
+    assert [(r["prefix_bits"], r["keep"]) for r in line["results"]] == [
+        (0, 0), (128, 16), (64, 64)]
+    assert line["results"][0]["recall"] >= 0.9
+    assert all(r["qps"] > 0 for r in line["results"])

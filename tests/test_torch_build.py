@@ -100,16 +100,26 @@ def test_symmetrize_matches_three_key_sort():
 
 
 def test_unported_forms_raise(fps):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        build_hnsw_exact(fps[:64], stream_select=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item"):
+    # stream_select=True is ported: the streamed probed build equals
+    # rad_tpu's streamed build (tests/test_torch_probe.py holds more cases)
+    kw = dict(connectivity=8, seed=1, probes=2, probe_csize=128,
+              probe_min_n=0, q_block=128, col_block=128, sel_block=128)
+    ref = ref_exact.build_hnsw_exact(fps, stream_select=True,
+                                     use_pallas=True, interpret=True, **kw)
+    port = build_hnsw_exact(fps, stream_select=True, device="cpu", **kw)
+    _assert_same_graph(ref, port, "stream_select=True")
+    with pytest.raises(NotImplementedError, match="Multi-device"):
         build_hnsw_exact(fps[:64], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="not ported by design"):
+        build_hnsw_exact(fps[:64], use_pallas=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported by design"):
         build_hnsw_exact(fps[:64], symm_mode="chunked", device="cpu")
     with pytest.raises(TypeError):
         build_hnsw_exact(fps[:64], not_an_option=1, device="cpu")
     with pytest.raises(ValueError):
         build_hnsw_exact(fps[:64], q_block=300, device="cpu")
+    with pytest.raises(ValueError):
+        build_hnsw_exact(fps[:64], stream_select="always", device="cpu")
 
 
 @pytest.mark.gpu

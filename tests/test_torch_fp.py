@@ -120,3 +120,92 @@ def test_unpack_bitmajor_permutation(fps):
     a, _ = fps
     ref = np.asarray(ref_unpack_bitmajor(jnp.asarray(a), jnp.float32))
     np.testing.assert_array_equal(unpack_bitmajor(_t(a)).numpy(), ref)
+
+
+@pytest.mark.parametrize("n_bits", [100, 128, None])
+def test_unpack_fingerprints_bit_equal(n_bits):
+    """tests/test_fp.py's round trip (17 x 100 bits) and whole words."""
+    rng = np.random.default_rng(0)
+    bits = (rng.random((17, 100)) < 0.3).astype(np.uint8)
+    packed = pack.pack_fingerprints(bits)
+    out = pack.unpack_fingerprints(packed, n_bits=n_bits)
+    np.testing.assert_array_equal(
+        out, ref_pack.unpack_fingerprints(packed, n_bits=n_bits))
+    assert out.dtype == np.uint8
+    np.testing.assert_array_equal(out[:, :100], bits)
+    np.testing.assert_array_equal(pack.unpack_fingerprints(packed[3]),
+                                  ref_pack.unpack_fingerprints(packed[3]))
+
+
+def _smiles_batch(n: int):
+    """SMILES-like strings of InMemorySmilesStore's kind, seeded."""
+    rng = np.random.default_rng(n)
+    alphabet = np.array(list("CNOSPFcno()=#123[]@H+-"))
+    return [("C" + "".join(rng.choice(alphabet, size=rng.integers(4, 40))))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("smiles,n_bits", [
+    (["CCO", "CCN", "c1ccccc1"], 512), (["", "C", "CC(=O)O"], 1024),
+    (_smiles_batch(96), 1024), (_smiles_batch(200), 256)],
+    ids=["test_fp", "short", "batch96", "batch200"])
+def test_smiles_fingerprints_bit_equal(smiles, n_bits):
+    """The hashed fallback, string by string and in batches; past 64
+    strings rad_tpu takes its C++ fingerprinter, so the larger batches also
+    hold the port's loop to that."""
+    out = pack.smiles_fingerprints(smiles, n_bits=n_bits)
+    np.testing.assert_array_equal(
+        out, ref_pack.smiles_fingerprints(smiles, n_bits=n_bits))
+    assert out.shape == (len(smiles), n_bits // 32)
+    assert out.dtype == np.uint32
+    for s in smiles[:3]:
+        np.testing.assert_array_equal(
+            pack.smiles_fingerprint(s, n_bits=n_bits),
+            ref_pack.smiles_fingerprint(s, n_bits=n_bits))
+    assert ref_pack._fnv1a64(b"CCO") == pack._fnv1a64(b"CCO")
+
+
+def test_unpack_to_dtype_and_mxu_matrix_match_reference():
+    """tests/test_fp.py's MXU case: the matrix from unpacked operands is
+    array-equal to the reference's and to the SWAR matrix."""
+    f = ref_pack.random_fingerprints(64, n_bits=256, seed=5)
+    f[9] = 0
+    q, db = f[:8], f
+    ref_u = ref_tani.unpack_to_dtype(jnp.asarray(q))
+    ref_dbu = ref_tani.unpack_to_dtype(jnp.asarray(db))
+    ref = np.asarray(ref_tani.tanimoto_matrix_mxu(
+        ref_u, ref_dbu, ref_pack.popcount_rows(jnp.asarray(q)),
+        ref_pack.popcount_rows(jnp.asarray(db))))
+    qu = tanimoto.unpack_to_dtype(_t(q))
+    dbu = tanimoto.unpack_to_dtype(_t(db))
+    assert qu.dtype == torch.bfloat16 and qu.shape == (8, 256)
+    np.testing.assert_array_equal(qu.float().numpy(),
+                                  np.asarray(ref_u, np.float32))
+    out = tanimoto.tanimoto_matrix_mxu(qu, dbu, pack.popcount_rows(_t(q)),
+                                       pack.popcount_rows(_t(db)))
+    assert out.dtype == torch.float32
+    np.testing.assert_array_equal(out.numpy(), ref)
+    np.testing.assert_array_equal(
+        out.numpy(), tanimoto.tanimoto_matrix(_t(q), _t(db)).numpy())
+
+
+@pytest.mark.parametrize("n,k,block", [(500, 7, 128), (500, 12, 7),
+                                       (130, 10, 1 << 16), (5, 8, 4)])
+def test_bruteforce_topk_blocked_array_equal(fps, n, k, block):
+    """Ragged last blocks, a block past N, and N < k (the result's tail
+    keeps the initial (inf, -1) entries, as the reference's does)."""
+    a, b = fps
+    db = ref_pack.random_fingerprints(n, n_bits=128, seed=n)
+    db[: min(n, 20)] = b[: min(n, 20)]
+    db[-1] = a[0]
+    q = np.concatenate([a[:6], db[:2]])
+    ref_d, ref_i = ref_tani.bruteforce_topk_blocked(
+        jnp.asarray(q), jnp.asarray(db), k, block=block)
+    d, i = tanimoto.bruteforce_topk_blocked(_t(q), _t(db), k, block=block)
+    assert d.shape == (len(q), k)
+    np.testing.assert_array_equal(d.numpy(), np.asarray(ref_d))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ref_i))
+    if n >= k:
+        full_d, full_i = tanimoto.bruteforce_topk(_t(q), _t(db), k)
+        np.testing.assert_array_equal(d.numpy(), full_d.numpy())
+        np.testing.assert_array_equal(i.numpy(), full_i.numpy())

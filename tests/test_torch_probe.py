@@ -3,8 +3,12 @@
 The partition, the probe tables and the probed candidate tables must be
 array-equal to the reference's, and whole probed builds edge-identical,
 in the matrix form and in the bucket form (the reference runs its Pallas
-kernels in interpret mode, the port the kernels' plain twins). The ``gpu``
-test builds the same probed graph on the card and on the CPU.
+kernels in interpret mode, the port the kernels' plain twins). The port
+always streams selection into the probed scan, so whatever
+``stream_select`` says it must build the graph of the reference's table
+path and of its streamed path. The ``gpu`` tests build the same probed
+graph on the card and on the CPU, and hold the streamed build's peak
+memory under the candidate tables it never allocates.
 """
 
 import logging
@@ -90,11 +94,16 @@ def test_probed_candidate_tables_array_equal(fps, gran, bucket):
         pairs_per_dispatch=ref_exact.PAIRS_PER_DISPATCH,
         probe_granularity=gran)
     packed_l = to_torch_packed(sub, "cpu")
-    pd, pi = exact._allpairs_topk_probed(
-        packed_l, popcount_rows(packed_l), n, k, qb, csz, bucket, 3, 8, 5,
-        sub, probe_granularity=gran)
-    np.testing.assert_array_equal(pd.numpy(), np.asarray(rd))
-    np.testing.assert_array_equal(pi.numpy(), np.asarray(ri))
+    # the tables the build never holds, made from the scan's blocks
+    pd = torch.full((n + 1, k), float("inf"))
+    pi = torch.full((n + 1, k), -1, dtype=torch.int32)
+    for bd, ids, rows in exact._probed_blocks(
+            packed_l, popcount_rows(packed_l), n, k, qb, csz, bucket, 3, 8,
+            5, sub, probe_granularity=gran):
+        rows = torch.where(rows >= 0, rows, n).long()
+        pd[rows], pi[rows] = bd, ids
+    np.testing.assert_array_equal(pd[:n].numpy(), np.asarray(rd))
+    np.testing.assert_array_equal(pi[:n].numpy(), np.asarray(ri))
 
 
 @pytest.mark.parametrize("gran,bucket,width", [
@@ -198,14 +207,103 @@ def test_probed_stage_validation(fps):
     packed_l = to_torch_packed(fps[:1024], "cpu")
     pops = popcount_rows(packed_l)
     with pytest.raises(ValueError, match="multiple of q_block"):
-        exact._allpairs_topk_probed(packed_l, pops, 1024, 8, 128, 192, None,
-                                    2, 4, 0, fps[:1024])
+        exact._probed_blocks(packed_l, pops, 1024, 8, 128, 192, None, 2, 4,
+                             0, fps[:1024])
     with pytest.raises(ValueError, match="exceeds probe csize"):
-        exact._allpairs_topk_probed(packed_l, pops, 1024, 300, 128, 256,
-                                    None, 2, 4, 0, fps[:1024])
+        exact._probed_blocks(packed_l, pops, 1024, 300, 128, 256, None, 2,
+                             4, 0, fps[:1024])
     with pytest.raises(ValueError, match="probe_granularity"):
         build_hnsw_exact(fps, probes=6, probe_granularity="row",
                          device="cpu", **PROBED)
+
+
+# tests/test_build_probe.py::test_stream_select_bit_identical's case
+STREAM = dict(connectivity=8, seed=11, q_block=128, col_block=128,
+              sel_block=128, probes=3, probe_csize=256, probe_min_n=0,
+              probe_sample=4)
+
+
+@pytest.fixture(scope="module")
+def stream_fps():
+    from rad_tpu.fp import random_fingerprints
+    return random_fingerprints(3000, n_bits=128, density=0.2, seed=21)
+
+
+@pytest.mark.parametrize("extra", [
+    {}, {"probe_granularity": "cluster"}, {"bucket_approx": True},
+    {"sel_block": 512}], ids=["qblock", "cluster", "bucket_approx",
+                              "sel_block_512"])
+def test_stream_select_edge_identical(stream_fps, extra):
+    """The port's streamed build is the graph of rad_tpu's table path and
+    of its streamed path, and still splits candidates from selection."""
+    kw = {**STREAM, **extra}
+    times = {}
+    port = build_hnsw_exact(stream_fps, stream_select=True,
+                            stage_times=times, device="cpu", **kw)
+    for stream in (False, True):
+        ref = ref_exact.build_hnsw_exact(stream_fps, stream_select=stream,
+                                         use_pallas=True, interpret=True,
+                                         **kw)
+        _assert_same_graph(ref, port, f"rad_tpu stream_select={stream} "
+                           f"{extra}")
+    assert times["probed_layers"] == [0]
+    assert times["candidates"] > 0 and times["selection"] > 0
+
+
+def test_stream_select_auto_rule(stream_fps, monkeypatch):
+    """Every probed layer streams, whatever ``stream_select`` says, and
+    no layer that does not probe streams; any other value raises."""
+    calls = []
+    inner = exact._select_probed
+
+    def counted(*a, **kw):
+        calls.append(a[3])          # the layer's n_pad
+        return inner(*a, **kw)
+
+    monkeypatch.setattr(exact, "_select_probed", counted)
+    base = build_hnsw_exact(stream_fps, device="cpu", **STREAM)
+    assert calls == [3072]          # layer 0 only: the one that probes
+    for stream in (True, False):
+        calls.clear()
+        _assert_same_graph(base, build_hnsw_exact(
+            stream_fps, stream_select=stream, device="cpu", **STREAM),
+            f"stream_select={stream}")
+        assert calls == [3072]
+    calls.clear()
+    build_hnsw_exact(stream_fps, stream_select=True, device="cpu",
+                     **dict(STREAM, probe_min_n=10_000))
+    assert calls == []
+    with pytest.raises(ValueError, match="stream_select"):
+        build_hnsw_exact(stream_fps, stream_select="always", device="cpu",
+                         **STREAM)
+
+
+@pytest.mark.gpu
+def test_cuda_streamed_build_never_holds_the_tables():
+    """At a shape where layer 0's ``[n_pad + 1, k]`` candidate tables
+    (1 GiB: k = 512 over 2^18 rows of 128 bits) would outweigh every
+    other buffer of the build, the probed build peaks under half of them:
+    the streamed selection never allocates them. Blocks of 1,024 rows
+    keep the exact layers' scans (a ``[q_block, n_pad]`` matrix and its
+    sort) small too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rad_tpu.fp import random_fingerprints
+
+    n, k = 1 << 18, 512
+    fps = random_fingerprints(n, n_bits=128, density=0.2, seed=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = {}
+    g = build_hnsw_exact(fps, connectivity=4, candidates=k, q_block=1024,
+                         col_block=1024, sel_block=1024, probes=2,
+                         probe_csize=4096, probe_min_n=0, stage_times=times,
+                         device="cuda")
+    peak = torch.cuda.max_memory_allocated() - base
+    tables = (n + 1) * k * 8
+    assert 0 in times["probed_layers"] and len(g) == n
+    assert peak < tables // 2, (peak, tables)
 
 
 @pytest.mark.gpu

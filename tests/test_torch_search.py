@@ -5,8 +5,15 @@ it with the same queries: distances and node ids must be array-equal, with
 the dense visited map and with the hash table (forced by a zero
 ``DENSE_VISITED_BUDGET``, as tests/test_visited.py does), at two beam
 widths and on a single-layer graph. The hash table's contents and ``seen``
-masks must be array-equal after colliding inserts. The ``gpu`` test runs
-the search on the card against the CPU.
+masks must be array-equal after colliding inserts. The two-stage prefix
+screen is held to the reference at 64, 128 and 256 prefix bits, keeping
+all of a wave or a quarter, dense and hashed, and over the packed
+adjacency; on a clustered library, keeping all gives the unscreened
+distances and a quarter keeps >= 0.9 of the unscreened ids, and where
+keeping all moves a result on a library whose distances tie often,
+``bench_prefix.full_keep_witness`` finds the tie (and reports a fault
+put into the screened waves). The ``gpu`` test runs the search on the
+card against the CPU.
 """
 
 import dataclasses
@@ -95,8 +102,12 @@ def test_index_search_matches_reference(graphs):
         np.testing.assert_array_equal(d, np.asarray(rd))
         np.testing.assert_array_equal(k, rk)
     assert k.dtype == np.int64 and k[0, 0] in keys
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        port.search(queries, prefix_filter=128)
+    rd, rk = ref.search(queries, k=10, prefix_filter=128)
+    d, k = port.search(queries, k=10, prefix_filter=128)
+    np.testing.assert_array_equal(d, np.asarray(rd))
+    np.testing.assert_array_equal(k, rk)
+    with pytest.raises(NotImplementedError, match="The native host path"):
+        port.search(queries, backend="native")
     d_p, i_p = knn.search_device(port.graph, queries, packed_adjacency=True,
                                  device="cpu")
     d_u, i_u = knn.search_device(port.graph, queries, device="cpu")
@@ -161,3 +172,107 @@ def test_cuda_search_equals_cpu_search(graphs, monkeypatch):
             dg, ig = knn.search_device(port, queries, k=10,
                                        expansion_search=ef, device="cuda")
             assert torch.equal(dg.cpu(), d) and torch.equal(ig.cpu(), i)
+
+
+E, M0 = 4, 16   # the search's expand width, the fixture graph's layer-0 row
+
+
+@pytest.mark.parametrize("pf,keep,hashed", [
+    (64, E * M0, False), (128, E * M0 // 4, False), (256, E * M0, True),
+    (128, None, True), (256, E * M0 // 4, False), (64, E * M0 // 4, True)])
+def test_prefix_screen_array_equal(graphs, monkeypatch, pf, keep, hashed):
+    _, ref, port, queries = graphs
+    if hashed:
+        monkeypatch.setattr(ref_visited, "DENSE_VISITED_BUDGET", 0)
+        monkeypatch.setattr(visited, "DENSE_VISITED_BUDGET", 0)
+    kw = dict(k=10, expansion_search=32, expand_width=E, prefix_filter=pf,
+              prefix_keep=keep)
+    rd, ri = ref_knn.search_device(ref, queries, **kw)
+    d, i = knn.search_device(port, queries, device="cpu", **kw)
+    np.testing.assert_array_equal(d.numpy(), np.asarray(rd))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+    # the prefix copy is cached per device and width
+    assert ("cpu", max(1, pf // 32)) in port.__dict__["_prefix_prep"]
+
+
+def test_prefix_screen_over_packed_adjacency(graphs):
+    _, ref, port, queries = graphs
+    kw = dict(k=8, expansion_search=48, prefix_filter=64)
+    rd, ri = ref_knn.search_device(ref, queries, packed_adjacency=True, **kw)
+    d_p, i_p = knn.search_device(port, queries, packed_adjacency=True,
+                                 device="cpu", **kw)
+    d_u, i_u = knn.search_device(port, queries, device="cpu", **kw)
+    np.testing.assert_array_equal(d_p.numpy(), np.asarray(rd))
+    np.testing.assert_array_equal(i_p.numpy(), np.asarray(ri))
+    np.testing.assert_array_equal(d_p.numpy(), d_u.numpy())
+    np.testing.assert_array_equal(i_p.numpy(), i_u.numpy())
+
+
+def test_prefix_screen_properties():
+    """tests/test_search.py's properties, on the port alone: on a
+    clustered analog library, keeping every candidate of a wave gives the
+    unscreened distances (and over the full width the unscreened ids too),
+    and a 128-bit screen keeping a quarter keeps >= 0.9 of the unscreened
+    ids."""
+    from enrichment_example import make_library
+    fps, _, _ = make_library(4000, 1024, seed=11)
+    g = build_hnsw_exact(fps, connectivity=8, seed=2, device="cpu")
+    rng = np.random.default_rng(3)
+    queries = np.asarray(g.packed)[rng.choice(4000, 24, replace=False)]
+    m0, kw = 16, dict(k=10, expansion_search=48, expand_width=E,
+                      device="cpu")
+    d0, i0 = knn.search_device(g, queries, **kw)
+    d1, _ = knn.search_device(g, queries, prefix_filter=128,
+                              prefix_keep=E * m0, **kw)
+    np.testing.assert_array_equal(d1.numpy(), d0.numpy())
+    # over the full width the screen's order is the distance order, so
+    # keeping the whole wave is the unscreened search, ties included
+    d3, i3 = knn.search_device(g, queries, prefix_filter=1024,
+                               prefix_keep=E * m0, **kw)
+    np.testing.assert_array_equal(d3.numpy(), d0.numpy())
+    np.testing.assert_array_equal(i3.numpy(), i0.numpy())
+    _, i2 = knn.search_device(g, queries, prefix_filter=128,
+                              prefix_keep=E * m0 // 4, **kw)
+    i0, i2 = i0.numpy(), i2.numpy()
+    overlap = np.mean([len(set(i2[q].tolist()) & set(i0[q].tolist())) / 10
+                       for q in range(len(queries))])
+    assert overlap >= 0.9, overlap
+
+
+def test_full_keep_witness_explains_moves_by_ties(monkeypatch):
+    """On 128-bit rows, whose distances tie often, the 32-bit screen that
+    keeps the whole wave moves some results; the witness replays both
+    searches and finds a tie at each query where the two first expand
+    different ids, and no fault. A stage 2 that drops one candidate of
+    each screened wave is reported as a fault."""
+    from rad_tpu_torch.bench_prefix import full_keep_witness
+
+    fps = random_fingerprints(3000, n_bits=128, density=0.2, seed=5)
+    g = build_hnsw_exact(fps, connectivity=8, seed=2, device="cpu")
+    queries = fps[np.random.default_rng(3).choice(3000, 64, replace=False)]
+    res, (da, ia), (db, ib) = full_keep_witness(g, queries, 32, 10, 32, E,
+                                                "cpu")
+    d0, i0 = knn.search_device(g, queries, k=10, expansion_search=32,
+                               expand_width=E, device="cpu")
+    np.testing.assert_array_equal(da, d0.numpy())
+    np.testing.assert_array_equal(ia, i0.numpy())
+    assert not all(r["same"] for r in res)
+    assert any(r["tie"] for r in res)
+    for r in res:
+        assert r["fault"] is None, r
+        assert (r["step"] is None) == (r["tie"] is None), r
+
+    query_dist, state = knn._query_dist, {"screen": False}
+
+    def lossy(q, q_pop, packed, pops, ids, valid):
+        if q.shape[1] < fps.shape[1]:
+            state["screen"] = True          # a stage-1 call: screened run
+        elif state["screen"] and ids.shape[1] > 1:
+            valid = valid.clone()
+            first = valid.int().argmax(1)
+            valid[torch.arange(len(valid)), first] = False
+        return query_dist(q, q_pop, packed, pops, ids, valid)
+
+    monkeypatch.setattr(knn, "_query_dist", lossy)
+    res, _, _ = full_keep_witness(g, queries, 32, 10, 32, E, "cpu")
+    assert all(r["fault"] is not None for r in res)

@@ -104,3 +104,125 @@ def test_introspection_parity(ref_graph):
                                 for s in ref_graph.levels_stats()]
     with pytest.raises(ValueError):
         g.get_neighbors(len(g), 0)
+
+
+def _read_meta(path):
+    import json
+    return json.loads(bytes(np.load(path)["meta_json"]).decode())
+
+
+def _stream_write(writer_cls, path, graph, chunks: int = 3):
+    """tests/test_graph.py's stream-writer recipe: keys and levels in one
+    go, each neighbor table in ``chunks`` row chunks, no vectors."""
+    w = writer_cls(path)
+    w.write_array("keys", np.asarray(graph.keys))
+    w.write_array("levels", np.asarray(graph.levels))
+    for l, t in enumerate(graph.neighbors):
+        t = np.asarray(t)
+        with w.member(f"neighbors_{l}", t.shape, t.dtype) as mb:
+            step = max(1, t.shape[0] // chunks)
+            for i in range(0, t.shape[0], step):
+                mb.write(t[i:i + step])
+    w.close({"ndim": graph.ndim, "connectivity": graph.connectivity,
+             "n_layers": len(graph.neighbors), "exclude_vectors": True,
+             "version": 1})
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_stream_writer_files_cross(ref_graph, tmp_path, writer):
+    """A file streamed by either package's NpzStreamWriter maps in place
+    in both, with equal arrays and equal meta (``fp_format_version``
+    added by ``close``)."""
+    from rad_tpu.graph.storage import NpzStreamWriter as RefWriter
+    from rad_tpu_torch.graph.storage import NpzStreamWriter
+
+    path = str(tmp_path / f"{writer}.npz")
+    _stream_write(NpzStreamWriter if writer == "port" else RefWriter, path,
+                  ref_graph)
+    other = str(tmp_path / "other.npz")
+    _stream_write(RefWriter if writer == "port" else NpzStreamWriter, other,
+                  ref_graph)
+    assert _read_meta(path) == _read_meta(other)
+    assert _read_meta(path)["fp_format_version"] == 3
+    with open(path, "rb") as a, open(other, "rb") as b:
+        assert a.read() == b.read()
+    for cls in (HNSWGraph, RefGraph):
+        g = cls.load(path, mmap=True)
+        assert isinstance(g.levels, np.memmap), cls
+        assert not g.has_vectors
+        np.testing.assert_array_equal(np.asarray(g.keys),
+                                      np.asarray(ref_graph.keys))
+        np.testing.assert_array_equal(np.asarray(g.levels),
+                                      np.asarray(ref_graph.levels))
+        for x, y in zip(g.neighbors, ref_graph.neighbors):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+        assert g.get_neighbors(0, 0) == ref_graph.get_neighbors(0, 0)
+
+
+def test_stream_writer_shape_guards(tmp_path):
+    from rad_tpu_torch.graph.storage import NpzStreamWriter
+
+    w = NpzStreamWriter(str(tmp_path / "bad.npz"))
+    with pytest.raises(ValueError, match="does not extend"):
+        with w.member("a", (4, 3), np.int32) as mb:
+            mb.write(np.zeros((2, 5), np.int32))
+    with pytest.raises(ValueError, match="declared"):
+        with w.member("b", (4, 3), np.int32) as mb:
+            mb.write(np.zeros((2, 3), np.int32))
+
+
+@pytest.mark.parametrize("saver", ["port", "reference"])
+def test_save_slim_files_cross(ref_graph, tmp_path, saver):
+    """``save(exclude_vectors=True, slim=True)`` by either package: the
+    v2 file loads in both to virtual keys and levels with equal arrays,
+    the meta's edge counts, and the same meta either way."""
+    from rad_tpu.graph.storage import ArangeKeys as RefArangeKeys
+    from rad_tpu.graph.storage import DerivedLevels as RefDerivedLevels
+
+    ided = dataclasses.replace(
+        ref_graph, keys=np.arange(len(ref_graph), dtype=np.int64))
+    port_g = _port_copy(ided)
+    path = str(tmp_path / f"{saver}.npz")
+    other = str(tmp_path / "other.npz")
+    first, second = (port_g, ided) if saver == "port" else (ided, port_g)
+    first.save(path, exclude_vectors=True, slim=True)
+    second.save(other, exclude_vectors=True, slim=True)
+    meta = _read_meta(path)
+    assert meta == _read_meta(other)
+    assert meta["version"] == 2 and meta["identity_keys"] and \
+        meta["derived_levels"]
+    assert meta["edges_per_layer"] == [s.edges
+                                       for s in ref_graph.levels_stats()]
+    assert set(np.load(path).files) == set(np.load(other).files)
+    for cls, keys_cls, levels_cls in (
+            (HNSWGraph, ArangeKeys, DerivedLevels),
+            (RefGraph, RefArangeKeys, RefDerivedLevels)):
+        g = cls.load(path, mmap=True)
+        assert isinstance(g.keys, keys_cls)
+        assert isinstance(g.levels, levels_cls)
+        np.testing.assert_array_equal(np.asarray(g.levels),
+                                      np.asarray(ref_graph.levels))
+        for x, y in zip(g.neighbors, ref_graph.neighbors):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+        assert [vars(s) for s in g.levels_stats()] == \
+            [vars(s) for s in ref_graph.levels_stats()]
+        assert g.get_node_ids_from_keys([0, 5]) == [0, 5]
+
+
+def test_save_slim_refuses_what_the_reference_refuses(ref_graph, tmp_path):
+    """slim needs exclude_vectors, identity keys and derived levels."""
+    g = _port_copy(ref_graph)
+    path = str(tmp_path / "x.npz")
+    with pytest.raises(ValueError, match="identity keys"):
+        g.save(path, exclude_vectors=True, slim=True)
+    with pytest.raises(ValueError, match="exclude_vectors"):
+        g.save(path, slim=True)
+    ided = dataclasses.replace(g, keys=np.arange(len(g), dtype=np.int64))
+    bad = dataclasses.replace(ided, levels=np.zeros_like(ided.levels))
+    with pytest.raises(ValueError, match="derived levels"):
+        bad.save(path, exclude_vectors=True, slim=True)
+    # a slim-loaded graph saves slim again (virtual keys and levels)
+    ided.save(path, exclude_vectors=True, slim=True)
+    again = str(tmp_path / "again.npz")
+    HNSWGraph.load(path).save(again, exclude_vectors=True, slim=True)
+    assert _read_meta(again) == _read_meta(path)
