@@ -132,7 +132,25 @@ Phases, one status line each (plus detail lines):
    the host over 200 held-out rows: mean top-5 distances within 0.02,
    recall@10 at ef 128 at least 0.85 against brute force; (d)
    ``smiles_fingerprints`` of 10,000 of phase 4's store strings, twice,
-   equal.
+   equal;
+10. the other builders on 110,000 molecules x 1024 bits of the mutation-
+   tree library (seed 0), M = 16, the size of
+   ``benchmarks/bench_build_device.py`` and ``bench_partition.py``: (a)
+   ``HNSWIndex.build(backend="device", batch_size=1024)`` (expansion_add
+   200) on the first 100,000 rows, recall@10 at ef 128 over 512 member
+   queries at least 0.80 and within 0.05 of the exact build of the same
+   rows (truth: the blocked brute force, its first 50 queries equal to the
+   plain ``bruteforce_topk``'s); (b) ``build_hnsw_device`` on 2,048 rows
+   (batch 256) and ``insert_into_graph`` of 256 more, on the card and on
+   the CPU, with the dense and with the hashed visited set:
+   edge-identical; (c) ``HNSWIndex.insert`` of the last 10,000 rows into
+   (a)'s graph: 512 of them found at distance 0, recall@10 over 512 member
+   queries of the 110,000 within 0.05 of (a)'s; (d)
+   ``build_hnsw_partitioned`` of the 100,000 rows in 4 exact shards
+   (expansion_add 128) with both Tanimoto kernels launched: recall@10 at
+   ef 64 over 256 member queries at least 0.9 and within 0.05 of the
+   exact monolithic build's, seconds per stage; then 4,096 rows on the
+   card and on the CPU: edge-identical.
 
 Phase 2 also holds the three probes to their twins on the benchmark's
 inputs (8,192 candidates over 2^20 rows); ``gather`` on one CTA and on a
@@ -172,7 +190,10 @@ from rad_tpu_torch import (HNSWIndex, _cuda, bench, bench_candidates,
                            bench_scalar_probe, create_local_traverser,
                            profiling)
 from rad_tpu_torch.build import exact, probe
+from rad_tpu_torch.build.device import build_hnsw_device
 from rad_tpu_torch.build.exact import build_hnsw_exact
+from rad_tpu_torch.build.incremental import insert_into_graph
+from rad_tpu_torch.build.partition import build_hnsw_partitioned
 from rad_tpu_torch.build.reference import search_hnsw
 from rad_tpu_torch.graph.storage import (ArangeKeys, DerivedLevels,
                                          HNSWGraph, NpzStreamWriter)
@@ -180,8 +201,11 @@ from rad_tpu_torch.fp import kernels
 from rad_tpu_torch.fp.pack import (popcount_rows, random_fingerprints,
                                    smiles_fingerprint, smiles_fingerprints,
                                    to_torch_packed)
-from rad_tpu_torch.fp.tanimoto import (bruteforce_topk, tanimoto_distance,
+from rad_tpu_torch.fp.tanimoto import (bruteforce_topk,
+                                       bruteforce_topk_blocked,
+                                       tanimoto_distance,
                                        tanimoto_rows_to_target)
+from rad_tpu_torch.search import visited
 from rad_tpu_torch.search.visited import (use_dense_visited,
                                           visited_capacity_for)
 from rad_tpu_torch.store import InMemorySmilesStore
@@ -273,6 +297,13 @@ PROBED_1M = dict(probes=16, probe_csize=8192, probe_sample=16,
 CHUNK_ROWS = 1 << 18     # phase 9b: NpzStreamWriter's chunk
 HOST_N = 5000            # phase 9c: the host builder's slice
 N_SMILES = 10_000        # phase 9d
+# phase 10: benchmarks/bench_build_device.py's and bench_partition.py's
+# library size (their default --n), the rows inserted after it, and the
+# slices built on the card and on the CPU
+BUILD_N = 100_000
+INSERT_N = 10_000
+PARITY_N, PARITY_INSERT, PARITY_BATCH = 2048, 256, 256
+PART_PARITY_N = 4096
 NQ, NN = 2048, 1 << 20   # phase 7: the repo's benchmark problem
 PROBE_K, PROBE_N = 8192, 1 << 20   # the scalar-loop probes' problem
 PANEL_T = 43             # phase 8b: a DUDE-Z sized receptor panel
@@ -2167,6 +2198,203 @@ def phase_port_forms(dev, ctx: dict) -> None:
     print(f"[9 forms] {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def _same_graph(a, b) -> bool:
+    return (a.layer_sizes == b.layer_sizes
+            and all(np.array_equal(np.asarray(getattr(a, f)),
+                                   np.asarray(getattr(b, f)))
+                    for f in ("keys", "levels", "packed"))
+            and all(np.array_equal(x, y)
+                    for x, y in zip(a.neighbors, b.neighbors)))
+
+
+def _member_truth(lib: np.ndarray, qidx: np.ndarray, dev, what: str):
+    """Top-10 library rows of the member queries ``lib[qidx]``: the
+    blocked brute force (matrix kernel), its first ``TRUTH_SAMPLE``
+    queries held to the plain ``bruteforce_topk``, as 6c holds them."""
+    q = to_torch_packed(lib[qidx], dev)
+    db = to_torch_packed(lib, dev)
+    d, ids = bruteforce_topk_blocked(q, db, 10, block=1 << 14)
+    d_plain, i_plain = bruteforce_topk(q[:TRUTH_SAMPLE], db, 10)
+    check(torch.equal(d[:TRUTH_SAMPLE], d_plain)
+          and torch.equal(ids[:TRUTH_SAMPLE], i_plain),
+          f"{what}: the blocked brute force differs from the plain one on "
+          f"its first {TRUTH_SAMPLE} queries")
+    return ids.cpu().numpy()
+
+
+def _index_recall(index, q, truth, ef: int) -> float:
+    _, found = index.search(q, k=10, expansion_search=ef)
+    return _recall(found, truth)
+
+
+def _beam_build(dev, lib: np.ndarray) -> dict:
+    """10a: HNSWIndex.build(backend="device") on BUILD_N rows, beside the
+    exact build of the same rows."""
+    base = lib[:BUILD_N]
+    qidx = np.random.default_rng(99).choice(BUILD_N, 512, replace=False)
+    truth = _member_truth(base, qidx, dev, "10a")
+    index = HNSWIndex(ndim=1024, connectivity=16, expansion_add=200,
+                      device=dev)
+    index.add(np.arange(BUILD_N), base)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = index.build(backend="device", batch_size=1024)
+    t_build = time.perf_counter() - t0
+    _check_graph(g)
+    batches = -(-(BUILD_N - 1) // 1024)
+    degree = float((g.neighbors[0] >= 0).sum(1).mean())
+    recall = _index_recall(index, base[qidx], truth, 128)
+
+    exact_index = HNSWIndex(ndim=1024, connectivity=16, device=dev)
+    exact_index.add(np.arange(BUILD_N), base)
+    t0 = time.perf_counter()
+    exact_index.build(backend="exact")
+    t_exact = time.perf_counter() - t0
+    recall_exact = _index_recall(exact_index, base[qidx], truth, 128)
+    print(f"[10a beam build] {BUILD_N:,} x 1024-bit, M=16, expansion_add "
+          f"200, batch 1024, layers {g.layer_sizes}: {t_build:.1f} s, "
+          f"{batches} batches, {t_build / batches:.3f} s a batch, layer-0 "
+          f"mean degree {degree:.2f}; recall@10 at ef 128 over 512 member "
+          f"queries {recall:.4f} (exact build {recall_exact:.4f}, "
+          f"{t_exact:.1f} s)", flush=True)
+    check(recall >= 0.80, f"10a: beam-built recall@10 {recall:.4f} < 0.80")
+    check(recall >= recall_exact - 0.05, f"10a: beam-built recall@10 "
+          f"{recall:.4f} more than 0.05 below the exact build's "
+          f"{recall_exact:.4f}")
+    return dict(index=index, exact_index=exact_index, recall=recall)
+
+
+def _beam_parity(dev, lib: np.ndarray) -> None:
+    """10b: the beam builder and the incremental insert on the card and
+    on the CPU, dense and hashed visited sets: edge-identical."""
+    kw = dict(connectivity=16, expansion_add=200, seed=0,
+              batch_size=PARITY_BATCH)
+    new = lib[PARITY_N:PARITY_N + PARITY_INSERT]
+    budget = visited.DENSE_VISITED_BUDGET
+    t_cpu = 0.0
+    try:
+        for hashed in (False, True):
+            visited.DENSE_VISITED_BUDGET = 0 if hashed else budget
+            t0 = time.perf_counter()
+            cpu = build_hnsw_device(lib[:PARITY_N], device="cpu", **kw)
+            cpu_ins = insert_into_graph(cpu, new, expansion_add=200,
+                                        batch_size=PARITY_BATCH,
+                                        device="cpu")
+            t_cpu += time.perf_counter() - t0
+            gpu = build_hnsw_device(lib[:PARITY_N], device=dev, **kw)
+            gpu_ins = insert_into_graph(gpu, new, expansion_add=200,
+                                        batch_size=PARITY_BATCH, device=dev)
+            what = "hashed" if hashed else "dense"
+            check(_same_graph(cpu, gpu), f"10b: the {what} beam build on "
+                  f"the card differs from the CPU's")
+            check(_same_graph(cpu_ins, gpu_ins), f"10b: the {what} insert "
+                  f"on the card differs from the CPU's")
+    finally:
+        visited.DENSE_VISITED_BUDGET = budget
+    print(f"[10b beam parity] {PARITY_N:,} rows (M=16, expansion_add 200, "
+          f"batch {PARITY_BATCH}) and {PARITY_INSERT} inserted, dense and "
+          f"hashed visited sets: card and CPU edge-identical on every layer "
+          f"(CPU sides {t_cpu:.1f} s)", flush=True)
+
+
+def _insert(dev, lib: np.ndarray, ctx: dict) -> None:
+    """10c: HNSWIndex.insert of INSERT_N rows into 10a's graph."""
+    index = ctx["index"]
+    new_keys = np.arange(BUILD_N, BUILD_N + INSERT_N)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.insert(new_keys, lib[BUILD_N:], batch_size=1024)
+    t_ins = time.perf_counter() - t0
+    g = index.graph
+    _check_graph(g)
+    check(len(g) == BUILD_N + INSERT_N, f"10c: {len(g)} rows after insert")
+    probe_rows = BUILD_N + np.random.default_rng(5).choice(
+        INSERT_N, 512, replace=False)
+    d, _ = index.search(lib[probe_rows], k=1)
+    check(bool((d[:, 0] == 0).all()), f"10c: {int((d[:, 0] > 0).sum())} of "
+          f"512 inserted rows not found at distance 0")
+    n = BUILD_N + INSERT_N
+    qidx = np.random.default_rng(99).choice(n, 512, replace=False)
+    truth = _member_truth(lib, qidx, dev, "10c")
+    recall = _index_recall(index, lib[qidx], truth, 128)
+    print(f"[10c insert] {INSERT_N:,} rows into 10a's graph (batch 1024): "
+          f"{t_ins:.1f} s ({INSERT_N / t_ins:,.0f} rows/s), layers "
+          f"{g.layer_sizes}; 512 inserted rows found at distance 0; "
+          f"recall@10 at ef 128 over 512 member queries of {n:,} "
+          f"{recall:.4f} (10a {ctx['recall']:.4f})", flush=True)
+    check(recall >= ctx["recall"] - 0.05, f"10c: recall@10 {recall:.4f} "
+          f"more than 0.05 below 10a's {ctx['recall']:.4f}")
+
+
+def _partitioned(dev, lib: np.ndarray, ctx: dict) -> None:
+    """10d: build_hnsw_partitioned, 4 exact shards, against 10a's exact
+    monolithic build, the launches of both Tanimoto kernels counted over
+    it alone; then a small one on the card and on the CPU."""
+    base = lib[:BUILD_N]
+    kw = dict(n_shards=4, connectivity=16, expansion_add=128, seed=0,
+              builder="exact")
+    stage = {}
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = build_hnsw_partitioned(base, device=dev, stage_times=stage, **kw)
+    t_build = time.perf_counter() - t0
+    launches = _counts("tanimoto_bucketmin", "tanimoto_matrix")
+    _check_graph(g)
+    for name, count in launches.items():
+        check(count > 0, f"{name} never launched in the partitioned build")
+    qidx = np.random.default_rng(99).choice(BUILD_N, 256, replace=False)
+    truth = _member_truth(base, qidx, dev, "10d")
+    recall = _index_recall(HNSWIndex.from_graph(g, device=dev), base[qidx],
+                           truth, 64)
+    recall_mono = _index_recall(ctx["exact_index"], base[qidx], truth, 64)
+    print(f"[10d partitioned] {BUILD_N:,} rows, 4 exact shards, M=16, "
+          f"expansion_add 128, layers {g.layer_sizes}: {t_build:.1f} s "
+          f"(sub-builds {stage['sub_builds']:.2f} s, layer-0 stitch "
+          f"searches {stage['stitch_search']:.2f} s, merge "
+          f"{stage['merge']:.2f} s, layer >= 1 stitch "
+          f"{stage['stitch_upper']:.2f} s); recall@10 at ef 64 over 256 "
+          f"member queries {recall:.4f} (exact monolithic "
+          f"{recall_mono:.4f}); launches {launches}", flush=True)
+    check(recall >= recall_mono - 0.05, f"10d: partitioned recall@10 "
+          f"{recall:.4f} more than 0.05 below the monolithic "
+          f"{recall_mono:.4f}")
+    check(recall >= 0.9, f"10d: partitioned recall@10 {recall:.4f} < 0.9")
+
+    t0 = time.perf_counter()
+    cpu = build_hnsw_partitioned(lib[:PART_PARITY_N], device="cpu", **kw)
+    t_cpu = time.perf_counter() - t0
+    gpu = build_hnsw_partitioned(lib[:PART_PARITY_N], device=dev, **kw)
+    check(_same_graph(cpu, gpu), "10d: the partitioned build on the card "
+          "differs from the CPU's")
+    print(f"[10d partitioned parity] {PART_PARITY_N:,} rows, 4 exact "
+          f"shards: card and CPU edge-identical on every layer (CPU "
+          f"{t_cpu:.1f} s)", flush=True)
+
+
+def phase_other_builders(dev) -> None:
+    """10: the other builders on the library of
+    ``benchmarks/bench_build_device.py --library tree`` and
+    ``bench_partition.py`` at their default 100,000 rows (1024 bits,
+    M = 16): 10a the batched beam build against the exact build, 10b the
+    beam build and insert on the card against the CPU, 10c the
+    incremental insert of 10,000 more rows, 10d the partition-and-stitch
+    build. The scale is cut from phase 4's 1M to those benchmarks' own
+    100k: the beam builder is a host loop of small launches, and the
+    phase has about 250 s of the run's 1200."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    lib, _ = make_library(BUILD_N + INSERT_N, 1024, seed=0)
+    print(f"[10 library] {BUILD_N + INSERT_N:,} x 1024-bit (make_library, "
+          f"seed 0): {time.perf_counter() - t0:.1f} s", flush=True)
+    ctx = _beam_build(dev, lib)
+    _beam_parity(dev, lib)
+    _insert(dev, lib, ctx)
+    _partitioned(dev, lib, ctx)
+    print(f"[10 other builders] {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2188,6 +2416,7 @@ def main() -> int:
         launches.update(nn_launches)
         launches.update(phase_engine_variants(dev, context))
         phase_port_forms(dev, context)
+        phase_other_builders(dev)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -12,13 +12,16 @@ The surface of ``rad_tpu.api.index.HNSWIndex`` (``add``/``build``/
 ``device`` picks where the build runs; ``None`` means the first CUDA
 device, and raises when torch sees none (pass ``device="cpu"`` to run the
 kernels' plain twins on the CPU). ``backend="exact"`` runs
-:func:`~rad_tpu_torch.build.exact.build_hnsw_exact` and ``"host"`` the
-numpy builder :func:`~rad_tpu_torch.build.reference.build_hnsw`; ``"auto"``
-is the exact builder on the index's device. That last is a deliberate
-difference: the reference's ``"auto"`` picks its accelerator builder only
-on its accelerator, and the native or numpy host builder elsewhere. The
-reference's batched beam (``"device"``) and native builders are not
-ported.
+:func:`~rad_tpu_torch.build.exact.build_hnsw_exact`, ``"device"`` the
+batched beam builder :func:`~rad_tpu_torch.build.device.build_hnsw_device`
+(both on the index's device) and ``"host"`` the numpy builder
+:func:`~rad_tpu_torch.build.reference.build_hnsw`; ``"auto"`` is the exact
+builder on the index's device. That last is a deliberate difference: the
+reference's ``"auto"`` picks its accelerator builder only on its
+accelerator, and the native or numpy host builder elsewhere. The
+reference's native builder is not ported. :meth:`HNSWIndex.insert` adds
+rows to the built graph in O(K)
+(:func:`~rad_tpu_torch.build.incremental.insert_into_graph`).
 """
 
 from __future__ import annotations
@@ -90,21 +93,36 @@ class HNSWIndex:
             logger.info("queued %d vectors (total pending %d)",
                         len(keys), sum(len(k) for k in self._pending_keys))
 
+    def insert(self, keys, vectors, **kwargs) -> None:
+        """True incremental insertion into the BUILT graph, on the index's
+        device: O(K) insert work instead of ``add``'s O(N + K) rebuild.
+        Builds first if needed; extra ``kwargs`` go to
+        :func:`~rad_tpu_torch.build.incremental.insert_into_graph`. Node
+        ids are renumbered (the level-sorted invariant) and keys are
+        stable: re-resolve ids through :meth:`get_node_ids_from_keys`."""
+        from rad_tpu_torch.build.incremental import insert_into_graph
+
+        vectors = coerce_packed(vectors, self.ndim)
+        keys = np.atleast_1d(np.asarray(keys, dtype=np.int64))
+        g = self.graph  # builds pending rows if necessary
+        self._graph = insert_into_graph(
+            g, vectors, new_keys=keys, expansion_add=self.expansion_add,
+            seed=self.seed, device=self.device, **kwargs)
+        # a later add() folds rows back from the graph (no pending copies)
+        self._pending_keys = []
+        self._pending_fps = []
+
     # ---------------------------------------------------------------- build
     def build(self, backend: str | None = None, **kwargs) -> HNSWGraph:
         """Construct the graph from all added vectors (extra ``kwargs``
-        go to the exact builder; the host builder takes none, as in the
-        reference)."""
+        go to the exact or the batched beam builder; the host builder
+        takes none, as in the reference)."""
         backend = backend or self.backend
-        if backend == "device":
-            raise NotImplementedError(
-                "build backend 'device': the batched beam builder is not "
-                "ported (ROADMAP Queue 1, \"The other builders\")")
         if backend == "native":
             raise NotImplementedError(
                 "build backend 'native': the C++ host builder is not ported "
                 "(ROADMAP Queue 1, \"The native host path\")")
-        if backend not in ("auto", "exact", "host"):
+        if backend not in ("auto", "exact", "host", "device"):
             raise ValueError(f"unknown build backend {backend!r}")
         if self._graph is not None:
             return self._graph
@@ -122,6 +140,11 @@ class HNSWIndex:
             from rad_tpu_torch.build.reference import build_hnsw
 
             self._graph = build_hnsw(fps, **common)
+        elif backend == "device":
+            from rad_tpu_torch.build.device import build_hnsw_device
+
+            self._graph = build_hnsw_device(fps, device=self.device,
+                                            **common, **kwargs)
         else:
             from rad_tpu_torch.build.exact import build_hnsw_exact
 

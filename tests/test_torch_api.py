@@ -89,7 +89,9 @@ def test_search_exact_matches_reference(library):
         port.search(fps[:5], k=10, backend="native")
     with pytest.raises(NotImplementedError, match="The native host path"):
         rad_tpu_torch.HNSWIndex(device="cpu").build(backend="native")
-    with pytest.raises(NotImplementedError, match="The other builders"):
+    # the batched beam builder is ported: an empty index refuses it as
+    # it refuses every backend, for want of vectors
+    with pytest.raises(RuntimeError, match="no vectors added"):
         rad_tpu_torch.HNSWIndex(device="cpu").build(backend="device")
 
 

@@ -22,7 +22,8 @@ import torch
 
 SUBMODULES = [
     "api.factories", "api.index", "api.traverser",
-    "build.device", "build.exact", "build.probe", "build.reference",
+    "build.device", "build.exact", "build.incremental", "build.partition",
+    "build.probe", "build.reference",
     "fp.kernels", "fp.pack", "fp.tanimoto",
     "graph.adjpack", "graph.storage",
     "search.knn", "search.visited",
@@ -34,7 +35,6 @@ SUBMODULES = [
 PACKAGES = ["api", "build", "fp", "graph", "search", "store", "traverse",
             "utils"]
 
-Q1_BUILDERS = "ROADMAP Queue 1, 'The other builders'"
 Q1_HOST_ENGINE = ("ROADMAP Queue 1, 'The host engine, the service layer "
                   "and the other deployment modes'")
 Q1_MULTI = "ROADMAP Queue 1, 'Multi-device'"
@@ -54,8 +54,6 @@ ALLOWED = {
                                                    Q1_HOST_ENGINE),
     "api.factories:create_pod_traverser": ("missing", Q1_MULTI),
     "api.factories:create_remote_traverser": ("missing", Q1_HOST_ENGINE),
-    "api.index:HNSWIndex.insert": ("missing", Q1_BUILDERS),
-    "build:build_hnsw_partitioned": ("missing", Q1_BUILDERS),
     **{f"fp:{name}": ("missing", LAYOUT + ": the kernel wrappers are "
                       "rad_tpu_torch.fp.kernels' tanimoto_matrix, "
                       "tanimoto_nn, tanimoto_bucketmin and "
@@ -74,8 +72,6 @@ ALLOWED = {
                     "WorkItem", "WorkerInfo", "CoordinationService",
                     "create_coordination_service", "ScoringWorker",
                     "WorkerPool", "create_worker_pool")},
-    "build:insert_into_graph": ("missing", Q1_BUILDERS),
-    "build.device:build_hnsw_device": ("missing", Q1_BUILDERS),
     "graph.adjpack:adj_group_for": ("missing", NOT_PORTED),
     "graph.storage:HNSWGraph.device_put": ("missing", NOT_PORTED),
     "graph.storage:HNSWGraph.tree_flatten": ("missing", NOT_PORTED),
@@ -111,6 +107,9 @@ ALLOWED = {
         NOT_PORTED + " (the Pallas knobs, the dispatch bound) and "
         + Q1_MULTI + " (mesh, mesh_axis), all refused through **unported;"
         " stage_times is the port's per-stage timer"),
+    "build.partition:build_hnsw_partitioned": (
+        "extra stage_times", "stage_times is the port's per-stage timer, "
+        "as build_hnsw_exact's"),
     "build.probe:cluster_probes": ("missing use_pallas, interpret",
                                    NOT_PORTED),
     "build.probe:qblock_probes": ("missing use_pallas, interpret",
