@@ -150,7 +150,33 @@ Phases, one status line each (plus detail lines):
    (expansion_add 128) with both Tanimoto kernels launched: recall@10 at
    ef 64 over 256 member queries at least 0.9 and within 0.05 of the
    exact monolithic build's, seconds per stage; then 4,096 rows on the
-   card and on the CPU: edge-identical.
+   card and on the CPU: edge-identical;
+11. the deployment modes on phase 4's graph and store, scored with phase
+   4's scores rounded to float32 (the device engine's score type): (a)
+   the index CLI (``rad_tpu_torch.scripts.build_index.main``, in this
+   process) on 20,000 of the store's strings (``key<TAB>smiles``), 1024
+   bits, M = 16, on the card: ``lib.npz`` and ``lib.db`` written, both
+   Tanimoto kernels launched, the graph edge-identical to
+   ``HNSWIndex(...).build()`` of the same ``smiles_fingerprints``; the
+   CLI's fingerprint and build seconds; (b)
+   ``create_distributed_traverser`` with 4 workers, then 1, each
+   ``prime`` + ``traverse(n_to_score=10_000)`` + ``get_best_molecules(100)``
+   on the 1M graph: distinct ids, every score its key's, top-100 recovery
+   at least 5x random; scored/s, neighbor fetches and termination reason;
+   (c) the graph served over loopback HTTP (``create_hnsw_server`` in a
+   thread, with a ``CoordinationService``): ``create_remote_traverser``
+   with 1 worker to 10,000 scored, its order equal to (b)'s 1-worker
+   order over their common prefix, the server's ``/neighbors`` p50 and
+   p99; then a ``ScoringWorker`` over a ``RemoteCoordinationClient``
+   joins the server's coordination, scores 1,000 and stops; the host
+   engine leaves ``torch.cuda.memory_allocated`` unchanged; (d)
+   ``RADTraverser(engine="device", batch_size=1, head_capacity=None)`` to
+   2,000 scored: (b)'s 1-worker order over the common prefix; (e)
+   ``python -m rad_tpu_torch.scripts.start_hnsw_server`` over (a)'s files
+   with ``--enable-coordination`` in a subprocess: ``/info`` reports
+   20,000 nodes, a remote traversal scores 1,000; then ``--workers 2`` on
+   a fixed free port: both processes answer, and no server process holds
+   a ``/dev/nvidia*`` file (this process does).
 
 Phase 2 also holds the three probes to their twins on the benchmark's
 inputs (8,192 candidates over 2^20 rows); ``gather`` on one CTA and on a
@@ -174,20 +200,28 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
+import logging
 import os
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
 
-from rad_tpu_torch import (HNSWIndex, _cuda, bench, bench_candidates,
-                           bench_kernel_variants, bench_prefix,
-                           bench_scalar_probe, create_local_traverser,
+from rad_tpu_torch import (HNSWIndex, RADTraverser, _cuda, bench,
+                           bench_candidates, bench_kernel_variants,
+                           bench_prefix, bench_scalar_probe,
+                           create_distributed_traverser,
+                           create_local_traverser, create_remote_traverser,
                            profiling)
 from rad_tpu_torch.build import exact, probe
 from rad_tpu_torch.build.device import build_hnsw_device
@@ -205,15 +239,21 @@ from rad_tpu_torch.fp.tanimoto import (bruteforce_topk,
                                        bruteforce_topk_blocked,
                                        tanimoto_distance,
                                        tanimoto_rows_to_target)
+from rad_tpu_torch.scripts import build_index
 from rad_tpu_torch.search import visited
 from rad_tpu_torch.search.visited import (use_dense_visited,
                                           visited_capacity_for)
-from rad_tpu_torch.store import InMemorySmilesStore
+from rad_tpu_torch.server import create_hnsw_server
+from rad_tpu_torch.service import LocalHNSWService
+from rad_tpu_torch.service.remote import RemoteCoordinationClient
+from rad_tpu_torch.store import InMemorySmilesStore, SQLiteSmilesStore
 from rad_tpu_torch.synthetic import make_library, make_receptor_tables
 from rad_tpu_torch.traverse import candidate_ops
 from rad_tpu_torch.traverse import device as tdev
 from rad_tpu_torch.traverse import multi
+from rad_tpu_torch.traverse.coordinator import CoordinationService
 from rad_tpu_torch.traverse.driver import DeviceTraverser
+from rad_tpu_torch.traverse.workers import ScoringWorker
 
 # name -> wrapper, the wrapper attribute that counts its launches, source
 KERNELS = {
@@ -304,6 +344,15 @@ BUILD_N = 100_000
 INSERT_N = 10_000
 PARITY_N, PARITY_INSERT, PARITY_BATCH = 2048, 256, 256
 PART_PARITY_N = 4096
+# phase 11: store strings through the index CLI (smiles_fingerprints is
+# pure Python, ~1 ms a string), the host engine's budget (1 % of phase 4's
+# graph), the device engine's at batch 1, and the scores of a worker that
+# joins over HTTP and of a traversal of the CLI's server
+CLI_N = 20_000
+HOST_TO_SCORE = N // 100
+DEVICE_TO_SCORE = 2_000
+REMOTE_N = 1_000
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 NQ, NN = 2048, 1 << 20   # phase 7: the repo's benchmark problem
 PROBE_K, PROBE_N = 8192, 1 << 20   # the scalar-loop probes' problem
 PANEL_T = 43             # phase 8b: a DUDE-Z sized receptor panel
@@ -2395,6 +2444,353 @@ def phase_other_builders(dev) -> None:
           flush=True)
 
 
+def _scoring32(true_scores):
+    """Phase 4's scores rounded to float32, the device engine's score
+    type: both engines then order the same values, so 11d compares orders
+    and not roundings."""
+    scores = true_scores.astype(np.float32)
+
+    def scoring_fn(smiles: str) -> float:
+        return float(scores[int(smiles[4:])])
+
+    return scoring_fn, scores
+
+
+def _held(mols, keys, scores, n: int, what: str) -> tuple:
+    """Distinct ids, each with its own key's score, and the top-100
+    recovery (held at 5x random, as phase 4 holds the device engine)."""
+    ids = np.array([m[0] for m in mols])
+    check(len(np.unique(ids)) == len(ids), f"{what}: duplicate ids")
+    check(all(s == float(scores[keys[i]]) for i, s, _ in mols),
+          f"{what}: a score is not its key's")
+    true_top = set(np.argsort(scores, kind="stable")[:100].tolist())
+    found = len(true_top & set(keys[ids].tolist()))
+    random_expect = 100 * len(ids) / n
+    check(found >= 5 * random_expect,
+          f"{what}: top-100 recovery {found} < 5 x random "
+          f"({random_expect:.2f})")
+    return found, found / max(random_expect, 1e-9)
+
+
+def _same_prefix(a, b, what: str) -> int:
+    k = min(len(a), len(b))
+    check(k > 0 and [(m[0], m[1]) for m in a[:k]]
+          == [(m[0], m[1]) for m in b[:k]],
+          f"{what}: orders differ over the common {k:,} molecules")
+    return k
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def _cli_build(dev, ctx: dict, tmp: str) -> str:
+    """11a: the index CLI on CLI_N of phase 4's store strings, on the card,
+    against the API build of the same fingerprints."""
+    strings = ctx["store"].get_smiles_batch(range(CLI_N))
+    path = os.path.join(tmp, "mols.smi")
+    with open(path, "w") as f:
+        f.writelines(f"{k}\t{s}\n" for k, s in strings.items())
+    prefix = os.path.join(tmp, "lib")
+    log = logging.getLogger("build_index")
+    rec = _Records()
+    log.addHandler(rec)
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = build_index.main([path, "--out", prefix, "--ndim", "1024",
+                               "--connectivity", "16"])
+    finally:
+        log.removeHandler(rec)
+    t_cli = time.perf_counter() - t0
+    launches = _counts("tanimoto_bucketmin", "tanimoto_matrix")
+    check(rc == 0, f"11a: build_index exited {rc}")
+    check(os.path.exists(prefix + ".npz") and os.path.exists(prefix + ".db"),
+          "11a: lib.npz or lib.db missing")
+    for name, count in launches.items():
+        check(count > 0, f"11a: {name} never launched by the index CLI")
+    # the CLI logs its two stages' seconds
+    secs = {r.msg.split()[0]: r.args[0 if r.msg.startswith("fing") else 1]
+            for r in rec.records
+            if r.msg.startswith(("fingerprinted in", "built HNSW"))}
+    check(sorted(secs) == ["built", "fingerprinted"],
+          f"11a: the CLI logged {[r.msg for r in rec.records]}")
+    cli = HNSWGraph.load(prefix + ".npz")
+    store = SQLiteSmilesStore(prefix + ".db")
+    check(len(cli) == CLI_N and len(store) == CLI_N,
+          f"11a: {len(cli)} nodes, {len(store)} SMILES rows")
+    store.close()
+    fps = smiles_fingerprints(list(strings.values()), n_bits=1024)
+    api = HNSWIndex(ndim=1024, connectivity=16, expansion_add=400,
+                    device=dev)
+    api.add(np.fromiter(strings.keys(), np.int64), fps)
+    check(_same_graph(cli, api.build()),
+          "11a: the CLI's graph differs from HNSWIndex(...).build()")
+    print(f"[11a index CLI] {CLI_N:,} strings -> {cli.layer_sizes}: "
+          f"{t_cli:.2f} s (fingerprints {secs['fingerprinted']:.2f} s, "
+          f"build {secs['built']:.2f} s on {dev}); launches {launches}; "
+          f"edge-identical to HNSWIndex.build", flush=True)
+    return prefix
+
+
+def _host_run(t, n_to_score: int, what: str, **kw) -> tuple:
+    """prime, traverse (termination checked every 20 ms, so the budget
+    is overshot by 20 ms of scoring at most), the best 100; shut down."""
+    t0 = time.perf_counter()
+    t.prime()
+    stats = t.traverse(n_to_score=n_to_score, poll_interval=0.02, **kw)
+    best = t.get_best_molecules(100)
+    secs = time.perf_counter() - t0
+    mols = t.get_molecules()
+    coord = t.get_traversal_stats()["coordination"]
+    t.shutdown()
+    check(len(best) == 100 and stats["n_scored"] >= n_to_score,
+          f"{what}: {stats['n_scored']} scored of {n_to_score}")
+    return mols, stats, coord, secs
+
+
+def _distributed(ctx: dict, scoring_fn, scores) -> list:
+    """11b: create_distributed_traverser on the 1M graph, 4 workers then
+    1; returns the 1-worker order."""
+    keys, n = ctx["keys"], len(ctx["keys"])
+    for n_workers in (4, 1):
+        t = create_distributed_traverser(ctx["index"], scoring_fn,
+                                         smiles_store=ctx["store"],
+                                         n_workers=n_workers)
+        check(t.engine == "host", f"11b: engine {t.engine}")
+        mols, stats, coord, secs = _host_run(t, HOST_TO_SCORE, "11b")
+        found, times = _held(mols, keys, scores, n,
+                             f"11b ({n_workers} workers)")
+        print(f"[11b distributed] {n_workers} worker(s): {len(mols):,} "
+              f"scored in {secs:.2f} s ({len(mols) / secs:,.0f} scored/s, "
+              f"{stats['termination_reason']}); neighbor_fetch "
+              f"{coord['neighbor_fetches']:,} x "
+              f"{coord['avg_neighbor_fetch_ms']:.4f} ms; top-100 found "
+              f"{found} ({times:.1f}x random)", flush=True)
+    return mols
+
+
+def _remote(ctx: dict, scoring_fn, scores, host1: list, tmp: str) -> None:
+    """11c: the same graph served over loopback HTTP: a remote traversal
+    with 1 worker, then a ScoringWorker joining the server's
+    coordination."""
+    graph, store, keys = ctx["graph"], ctx["store"], ctx["keys"]
+    service = LocalHNSWService(graph, store)
+    coord = CoordinationService(service, heartbeat_interval=0.5)
+    srv, app = create_hnsw_server(graph, host="127.0.0.1", port=0,
+                                  smiles_store=store, coordination=coord,
+                                  cache_dir=tmp)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        t = create_remote_traverser(url, scoring_fn)
+        check(t.engine == "host", f"11c: engine {t.engine}")
+        mols, stats, cstats, secs = _host_run(t, HOST_TO_SCORE, "11c",
+                                              n_workers=1)
+        found, times = _held(mols, keys, scores, len(keys), "11c remote")
+        k = _same_prefix(mols, host1, "11c remote vs 11b's 1 worker")
+        q = app.metrics.latency_quantiles("/neighbors/{}/{}")
+        print(f"[11c remote] 1 worker over {url}: {len(mols):,} scored in "
+              f"{secs:.2f} s ({len(mols) / secs:,.0f} scored/s, "
+              f"{stats['termination_reason']}); the order of 11b's over "
+              f"{k:,}; neighbor_fetch {cstats['neighbor_fetches']:,} x "
+              f"{cstats['avg_neighbor_fetch_ms']:.3f} ms on the client; "
+              f"server /neighbors p50 {q[0.5]:.3f} ms, p99 {q[0.99]:.3f} "
+              f"ms; top-100 found {found} ({times:.1f}x random)",
+              flush=True)
+        # the flow of examples/distributed_workers_example.py: the head
+        # node primes its coordination, a worker elsewhere joins over HTTP
+        top = service.get_top_level_nodes()
+        lvl = max(0, graph.max_level - 1)
+        for nid, smi in zip(top[0::2], top[1::2]):
+            s = scoring_fn(smi)
+            coord.scored_set.insert(nid, s, smi)
+            if not coord.visited_set.checkAndInsert(nid, lvl):
+                coord.priority_queue.insert(nid, lvl, s)
+        coord.start()
+        client = RemoteCoordinationClient(url, max_retries=1)
+        worker = ScoringWorker(client, scoring_fn, poll_interval=0.01)
+        t0 = time.perf_counter()
+        worker.start()
+        deadline = time.time() + 60
+        done, reason = False, None
+        while not done and time.time() < deadline:
+            done, reason = coord.check_termination(n_to_score=REMOTE_N)
+            time.sleep(0.05)
+        worker.stop()
+        client.shutdown()
+        secs = time.perf_counter() - t0
+        joined = coord.scored_set.get_molecules()
+        wstats = coord.get_coordination_stats()["workers"][worker.worker_id]
+        check(done and reason == "n_to_score" and len(joined) >= REMOTE_N,
+              f"11c: the joining worker scored {len(joined)}")
+        check(not worker.is_running and wstats["completed_count"]
+              == worker.items_processed > 0,
+              f"11c: worker {wstats} after stop")
+        ids = [m[0] for m in joined]
+        check(len(set(ids)) == len(ids) and all(
+            s == float(scores[keys[i]]) for i, s, _ in joined),
+            "11c: the joining worker's molecules")
+        print(f"[11c worker] a ScoringWorker over RemoteCoordinationClient:"
+              f" {worker.molecules_scored:,} scored, "
+              f"{worker.items_processed:,} items in {secs:.2f} s, stopped",
+              flush=True)
+    finally:
+        coord.shutdown()
+        srv.shutdown()
+        srv.server_close()
+
+
+def _device_vs_host(dev, ctx: dict, scoring_fn, host1: list) -> None:
+    """11d: the device engine at batch 1, one frontier level, against the
+    host engine's 1-worker order."""
+    t = RADTraverser(graph=ctx["graph"], scoring_fn=scoring_fn,
+                     smiles_store=ctx["store"], engine="device",
+                     batch_size=1, head_capacity=None, device=dev)
+    t0 = time.perf_counter()
+    t.prime()
+    t.traverse(n_to_score=DEVICE_TO_SCORE)
+    mols = t.get_molecules()
+    secs = time.perf_counter() - t0
+    t.shutdown()
+    k = _same_prefix(mols, host1, "11d device engine at batch 1 vs host")
+    check(k >= DEVICE_TO_SCORE, f"11d: {k} compared")
+    print(f"[11d device vs host] batch 1: {len(mols):,} scored in "
+          f"{secs:.2f} s; the host engine's order over {k:,}", flush=True)
+
+
+def _nvidia_fds(pid: int) -> int:
+    """Open /dev/nvidia* files of a process: a CUDA context holds some."""
+    fd_dir = f"/proc/{pid}/fd"
+    n = 0
+    for fd in os.listdir(fd_dir):
+        with contextlib.suppress(OSError):
+            n += os.readlink(os.path.join(fd_dir, fd)).startswith(
+                "/dev/nvidia")
+    return n
+
+
+def _get(url: str) -> dict:
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return json.loads(r.read())
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _server_process(args, tmp: str, name: str):
+    """``python -m rad_tpu_torch.scripts.start_hnsw_server`` in its own
+    process group, up on /health; the whole group is ended on exit."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO_ROOT, os.environ.get("PYTHONPATH")) if p))
+    log = open(os.path.join(tmp, f"{name}.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rad_tpu_torch.scripts.start_hnsw_server",
+         "--host", "127.0.0.1", "--port", str(port), "--cache-dir", tmp,
+         *args], cwd=REPO_ROOT, env=env, stdout=log,
+        stderr=subprocess.STDOUT, start_new_session=True)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.time() + 90
+        while True:
+            check(proc.poll() is None, f"11e: {name} exited {proc.returncode}")
+            with contextlib.suppress(OSError):
+                if _get(url + "/health")["status"] == "healthy":
+                    break
+            check(time.time() < deadline, f"11e: {name} not up in 90 s")
+            time.sleep(0.2)
+        yield proc, url
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGTERM)
+        try:
+            proc.wait(timeout=15)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=15)
+        log.close()
+
+
+def _server_cli(ctx: dict, scoring_fn, scores, prefix: str,
+                tmp: str) -> None:
+    """11e: the server CLI over 11a's files as users start it, then with
+    two processes on one port; neither opens the card."""
+    check(_nvidia_fds(os.getpid()) > 0,
+          "11e: this process shows no /dev/nvidia file: the check is blind")
+    t0 = time.perf_counter()
+    with _server_process(["--hnsw-path", prefix + ".npz", "--database-path",
+                          prefix + ".db", "--enable-coordination"], tmp,
+                         "server") as (proc, url):
+        t_up = time.perf_counter() - t0
+        info = _get(url + "/info")
+        check(info["hnsw"]["size"] == CLI_N and info["smiles_db_size"]
+              == CLI_N, f"11e: /info {info['hnsw']}")
+        t = create_remote_traverser(url, scoring_fn)
+        mols, stats, _, secs = _host_run(t, REMOTE_N, "11e", n_workers=1)
+        keys = np.asarray(HNSWGraph.load(prefix + ".npz").keys)
+        ids = [m[0] for m in mols]
+        check(len(set(ids)) == len(ids) and all(
+            s == float(scores[keys[i]]) for i, s, _ in mols),
+            "11e: the remote traversal's molecules")
+        check(_nvidia_fds(proc.pid) == 0, "11e: the server opened the card")
+    print(f"[11e server CLI] up in {t_up:.2f} s, /info {CLI_N:,} nodes; "
+          f"remote traversal {len(mols):,} scored in {secs:.2f} s "
+          f"({len(mols) / secs:,.0f} scored/s)", flush=True)
+    with _server_process(["--hnsw-path", prefix + ".npz", "--database-path",
+                          prefix + ".db", "--workers", "2"], tmp,
+                         "workers") as (proc, url):
+        pids = set()
+        for _ in range(200):
+            pids.add(_get(url + "/health")["pid"])
+            if len(pids) == 2:
+                break
+        check(len(pids) == 2, f"11e: --workers 2 answered from {pids}")
+        check(_get(url + "/neighbors/0/0")["node_id"] == 0,
+              "11e: --workers 2 /neighbors")
+        opened = {pid: _nvidia_fds(pid) for pid in pids | {proc.pid}}
+        check(not any(opened.values()),
+              f"11e: a server process opened the card: {opened}")
+    print(f"[11e server CLI] --workers 2: pids {sorted(pids)} both answer; "
+          f"no /dev/nvidia file open in {sorted(opened)}", flush=True)
+
+
+def phase_deployment(dev, ctx: dict) -> None:
+    """11: the deployment modes on phase 4's graph: the index CLI on the
+    card, the distributed and remote host engine, the device engine
+    against it, the server CLI."""
+    t_phase = time.perf_counter()
+    scoring_fn, scores = _scoring32(ctx["true_scores"])
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = _cli_build(dev, ctx, tmp)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated(dev)
+        host1 = _distributed(ctx, scoring_fn, scores)
+        _remote(ctx, scoring_fn, scores, host1, tmp)
+        mem1 = torch.cuda.memory_allocated(dev)
+        check(mem1 == mem0, f"11b-c: the host engine allocated "
+                            f"{mem1 - mem0} bytes on the card")
+        _device_vs_host(dev, ctx, scoring_fn, host1)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem2 = torch.cuda.memory_allocated(dev)
+        check(mem2 == mem0, f"11d: {mem2 - mem0} bytes left on the card")
+        _server_cli(ctx, scoring_fn, scores, prefix, tmp)
+    print(f"[11 deployment] {time.perf_counter() - t_phase:.1f} s; "
+          f"torch.cuda.memory_allocated {mem0:,} bytes before 11b, after "
+          f"11c and after 11d", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2417,6 +2813,7 @@ def main() -> int:
         launches.update(phase_engine_variants(dev, context))
         phase_port_forms(dev, context)
         phase_other_builders(dev)
+        phase_deployment(dev, context)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

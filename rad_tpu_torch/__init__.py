@@ -3,12 +3,14 @@ kernels for NVIDIA Hopper (sm_90a).
 
 The counterpart of :mod:`rad_tpu` (JAX/Pallas): packed-fingerprint
 Tanimoto math, the exact all-pairs HNSW builder (and the numpy host
-builder), ``.npz`` graph storage, the beam search, and the score-guided
-best-first traversal behind ``HNSWIndex`` /
-``RADTraverser``. Module paths and public names mirror ``rad_tpu`` so each
-piece has an obvious counterpart. This package imports ``torch`` and
-numpy only — never ``jax`` and never ``rad_tpu`` (importing any
-``rad_tpu`` module loads jax through ``rad_tpu/__init__.py``).
+builder), ``.npz`` graph storage, the beam search, the score-guided
+best-first traversal behind ``HNSWIndex`` / ``RADTraverser`` (the device
+engine, and the host engine of the distributed and remote deployments),
+the HNSW services and the HTTP index server. Module paths and public
+names mirror ``rad_tpu`` so each piece has an obvious counterpart. This
+package imports ``torch``, numpy and the standard library only — never
+``jax`` and never ``rad_tpu`` (importing any ``rad_tpu`` module loads jax
+through ``rad_tpu/__init__.py``).
 
 Conventions:
 
@@ -30,6 +32,8 @@ __all__ = [
     "HNSWIndex",
     "RADTraverser",
     "create_local_traverser",
+    "create_distributed_traverser",
+    "create_remote_traverser",
 ]
 
 _LAZY = {
@@ -38,6 +42,10 @@ _LAZY = {
     "RADTraverser": ("rad_tpu_torch.api.traverser", "RADTraverser"),
     "create_local_traverser": ("rad_tpu_torch.api.factories",
                                "create_local_traverser"),
+    "create_distributed_traverser": ("rad_tpu_torch.api.factories",
+                                     "create_distributed_traverser"),
+    "create_remote_traverser": ("rad_tpu_torch.api.factories",
+                                "create_remote_traverser"),
 }
 
 

@@ -279,9 +279,11 @@ def test_entry_points_default_to_the_card(library, monkeypatch):
 
 
 def test_port_never_loads_jax():
-    """A fresh interpreter runs a tiny quick start on the port and imports
-    its benchmark entry points, and must not have imported jax, rad_tpu or
-    the repo's benchmarks."""
+    """A fresh interpreter runs a tiny quick start on the port, imports
+    its benchmark and command-line entry points, runs a 30-scored
+    distributed traversal and one neighbor fetch over loopback HTTP, and
+    must not have imported jax, rad_tpu, the repo's benchmarks or
+    requests."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -306,9 +308,31 @@ def test_port_never_loads_jax():
         import rad_tpu_torch.bench_mma_rate, rad_tpu_torch.bench_candidates
         import rad_tpu_torch.bench_prefix, rad_tpu_torch.utils.profiling
         import rad_tpu_torch.build.reference
+        import rad_tpu_torch.scripts.build_index
+        import rad_tpu_torch.scripts.start_hnsw_server
+        import threading
+        from rad_tpu_torch import create_distributed_traverser
+        from rad_tpu_torch.server import create_hnsw_server
+        from rad_tpu_torch.service import create_remote_hnsw_service
+        from rad_tpu_torch.traverse import CoordinationService
+        d = create_distributed_traverser(index, lambda s: float(s[1:]) % 7.5,
+                                         smiles_store=store, n_workers=2)
+        d.prime()
+        d.traverse(n_to_score=30, poll_interval=0.01)
+        assert len(d.get_best_molecules(5)) == 5
+        d.shutdown()
+        srv, app = create_hnsw_server(index.graph, port=0,
+                                      smiles_store=store)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        remote = create_remote_hnsw_service(
+            f"http://127.0.0.1:{srv.server_address[1]}", register=False)
+        assert remote.get_neighbors(0, 0)[1].startswith("M")
+        remote.shutdown()
+        srv.shutdown()
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "rad_tpu",
-                                            "bench", "benchmarks"))
+                                            "bench", "benchmarks",
+                                            "requests"))
         assert not bad, bad
         print("isolated")
     """)

@@ -27,16 +27,17 @@ SUBMODULES = [
     "fp.kernels", "fp.pack", "fp.tanimoto",
     "graph.adjpack", "graph.storage",
     "search.knn", "search.visited",
+    "server.http_server",
+    "service.base", "service.local", "service.registry", "service.remote",
     "store.smiles_store",
-    "traverse.device", "traverse.driver", "traverse.multi",
-    "traverse.pipeline", "traverse.spill",
+    "traverse.coordinator", "traverse.device", "traverse.driver",
+    "traverse.multi", "traverse.pipeline", "traverse.spill",
+    "traverse.structures", "traverse.workers",
     "utils.profiling",
 ]
-PACKAGES = ["api", "build", "fp", "graph", "search", "store", "traverse",
-            "utils"]
+PACKAGES = ["api", "build", "fp", "graph", "search", "server", "service",
+            "store", "traverse", "utils"]
 
-Q1_HOST_ENGINE = ("ROADMAP Queue 1, 'The host engine, the service layer "
-                  "and the other deployment modes'")
 Q1_MULTI = "ROADMAP Queue 1, 'Multi-device'"
 Q1_NATIVE = "ROADMAP Queue 1, 'The native host path'"
 Q1_SCALE = ("ROADMAP Queue 1, the port of benchmarks/bench_scale.py and "
@@ -47,13 +48,8 @@ LAYOUT = "an internal laid out differently"
 # "module:name" -> (the diff it must produce, why)
 ALLOWED = {
     # ---- names the port does not have yet
-    "api:create_distributed_traverser": ("missing", Q1_HOST_ENGINE),
     "api:create_pod_traverser": ("missing", Q1_MULTI),
-    "api:create_remote_traverser": ("missing", Q1_HOST_ENGINE),
-    "api.factories:create_distributed_traverser": ("missing",
-                                                   Q1_HOST_ENGINE),
     "api.factories:create_pod_traverser": ("missing", Q1_MULTI),
-    "api.factories:create_remote_traverser": ("missing", Q1_HOST_ENGINE),
     **{f"fp:{name}": ("missing", LAYOUT + ": the kernel wrappers are "
                       "rad_tpu_torch.fp.kernels' tanimoto_matrix, "
                       "tanimoto_nn, tanimoto_bucketmin and "
@@ -66,12 +62,6 @@ ALLOWED = {
     "search.knn:search_device_jit": (
         "missing", LAYOUT + ": the jitted batch is _search_batch, a host "
         "loop over a batch"),
-    **{f"traverse:{name}": ("missing", Q1_HOST_ENGINE)
-       for name in ("PriorityQueue", "VisitedSet", "ScoredSet",
-                    "HostPriorityQueue", "HostVisitedSet", "HostScoredSet",
-                    "WorkItem", "WorkerInfo", "CoordinationService",
-                    "create_coordination_service", "ScoringWorker",
-                    "WorkerPool", "create_worker_pool")},
     "graph.adjpack:adj_group_for": ("missing", NOT_PORTED),
     "graph.storage:HNSWGraph.device_put": ("missing", NOT_PORTED),
     "graph.storage:HNSWGraph.tree_flatten": ("missing", NOT_PORTED),
@@ -96,11 +86,9 @@ ALLOWED = {
         "torch.profiler's as aggregate_device_ops"),
     # ---- signatures that differ
     "api.traverser:RADTraverser.__init__": (
-        "missing hnsw_service; extra head_capacity, order_log_spill, "
-        "packed_adjacency; order",
-        Q1_HOST_ENGINE + ": hnsw_service arrives with the services, and "
-        "the parameter order with it; the three engine options are "
-        "keywords the reference pops from **kwargs"),
+        "extra head_capacity, order_log_spill, packed_adjacency",
+        LAYOUT + ": the device engine's three options are named keywords "
+        "where the reference pops them from **kwargs"),
     "build.exact:build_hnsw_exact": (
         "missing use_pallas, approx_recall, pairs_per_dispatch, "
         "interpret, mesh, mesh_axis; extra stage_times, unported",
