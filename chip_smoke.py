@@ -61,10 +61,13 @@ Phases, one status line each (plus detail lines):
 6. the cluster-probed build at 10,000,000 molecules x 1024 bits, M = 16
    (the library and operating point of
    ``benchmarks/bench_probe_sweep.py``'s qblock:16 point): (a) the library;
-   (b) ``HNSWIndex.build(probes=16, probe_csize=8192, probe_sample=16,
-   probe_granularity="qblock", probe_min_n=0)`` with both Tanimoto kernels
-   launched and layer 0 probed (selection streamed into the scan); (c)
-   edge recall@10 and ``index.search`` recall@10 at ef 32 and 128 over
+   (b) the sweep's own build of that point,
+   ``rad_tpu_torch.bench_probe_sweep.one_build`` (``build_hnsw_exact``
+   with probes 16 of 8192-row clusters, sample 16, qblock, unpadded,
+   ``probe_min_n=0``), with both Tanimoto kernels launched and layer 0
+   probed (selection streamed into the scan), opened as
+   ``HNSWIndex.from_graph``; (c) edge recall@10 and ``index.search``
+   recall@10 at ef 32 and 128 over
    500 member queries against brute force (the blocked scan, whose first
    50 queries must equal the plain ``bruteforce_topk``'s), each within its
    bound of the reference's recorded value; (d) ``prime``
@@ -177,6 +180,38 @@ Phases, one status line each (plus detail lines):
    20,000 nodes, a remote traversal scores 1,000; then ``--workers 2`` on
    a fixed free port: both processes answer, and no server process holds
    a ``/dev/nvidia*`` file (this process does).
+12. the real-chemistry main path at the DUD-Z morgan example's size
+   (``examples/dudez_workflow.py --chemistry morgan``): 40,000 SMILES of
+   ``rad_tpu_torch.chem.library.make_smiles_library(seed=0)``, their
+   Morgan fingerprints (``chem.morgan_fingerprints_packed``, radius 2,
+   1024 bits),
+   ``HNSWIndex(connectivity=16, expansion_add=400).add/build`` on the card
+   with both Tanimoto kernels launched → ``save``/``load`` (the graph
+   equal, ``fp_format_version`` stamped and read back) →
+   ``create_local_traverser`` over a store of the SMILES, scored by the
+   library's SAR table, batch 4 → ``prime`` → ``traverse`` to 1 % and
+   then to 10 % → ``get_best_molecules``: no duplicate ids, the true
+   top-100 found at least 5x random at 1 % and more than half at 10 %;
+   the first 8,192 rows built on the card and on the CPU edge-identical;
+13. the sweep entry points: (a) ``rad_tpu_torch.bench_recall.main`` on
+   20,000 rows of the sequential tree library, 256 queries, ef 32 and
+   128, the exact builder: recall@10 at ef 128 at least 0.80, its
+   brute-force truth (matrix kernel) equal to the plain
+   ``bruteforce_topk`` on 50 queries; (b) ``bench_probe_sweep``'s
+   ``RecallEval`` over phase 6's library and 6b's graph (the sweep's own
+   qblock:16 build): edge recall and recall at ef 32 and 128 equal to
+   6c's, its truth taken anew; (c)
+   ``bench_probe_sweep.main --library morgan`` at 40,000 molecules, the
+   exact baseline and one probed point (csize 4,096, qblock:2): the
+   records and the JSON line checked;
+14. the engine at 100,000,000 nodes (``rad_tpu_torch.bench_scale.main``,
+   m = 8, batch 1024, the graph made on the card in 64 chunks; the budget
+   cut from 10M to 1M): ``--mode id --no-score-table`` and ``--mode
+   hash``, ``--runs 1``: at least the budget scored, no duplicate in the
+   order log, the peak of allocated memory within 15 % of the bytes of
+   the graph, the score source and the state; then one 200,000-node graph
+   run in id mode without the table on the card and on the CPU: the same
+   order log.
 
 Phase 2 also holds the three probes to their twins on the benchmark's
 inputs (8,192 candidates over 2^20 rows); ``gather`` on one CTA and on a
@@ -219,7 +254,8 @@ import torch
 
 from rad_tpu_torch import (HNSWIndex, RADTraverser, _cuda, bench,
                            bench_candidates, bench_kernel_variants,
-                           bench_prefix, bench_scalar_probe,
+                           bench_prefix, bench_probe_sweep, bench_recall,
+                           bench_scalar_probe, bench_scale,
                            create_distributed_traverser,
                            create_local_traverser, create_remote_traverser,
                            profiling)
@@ -229,6 +265,8 @@ from rad_tpu_torch.build.exact import build_hnsw_exact
 from rad_tpu_torch.build.incremental import insert_into_graph
 from rad_tpu_torch.build.partition import build_hnsw_partitioned
 from rad_tpu_torch.build.reference import search_hnsw
+from rad_tpu_torch.chem import FP_FORMAT_VERSION, morgan_fingerprints_packed
+from rad_tpu_torch.chem.library import make_smiles_library
 from rad_tpu_torch.graph.storage import (ArangeKeys, DerivedLevels,
                                          HNSWGraph, NpzStreamWriter)
 from rad_tpu_torch.fp import kernels
@@ -352,6 +390,23 @@ CLI_N = 20_000
 HOST_TO_SCORE = N // 100
 DEVICE_TO_SCORE = 2_000
 REMOTE_N = 1_000
+# phase 12: the DUD-Z morgan example's size and settings
+# (examples/dudez_workflow.py: 40,000 molecules, M = 16, efC 400, batch 4),
+# the top scorers counted, and the slice built on the card and on the CPU
+CHEM_N = 40_000
+CHEM_TOP = 100
+CHEM_PARITY_N = 8192
+# phase 13: bench_recall's check size, its recall bar at ef 128, and the
+# morgan sweep's size (csize 4,096 gives 10 clusters, enough for 2 probes)
+RECALL_N = 20_000
+RECALL_BAR = 0.80
+SWEEP_MORGAN_N = 40_000
+# phase 14: bench_scale's defaults but the budget (10M cut to 1M), the
+# size of the CPU-vs-card id run and its budget, and the bar between the
+# peak of allocated memory and the bytes of the tensors it holds
+SCALE_N, SCALE_BUDGET = 100_000_000, 1_000_000
+SCALE_PARITY_N, SCALE_PARITY_BUDGET = 200_000, 50_000
+PEAK_TOL = 0.15
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 NQ, NN = 2048, 1 << 20   # phase 7: the repo's benchmark problem
 PROBE_K, PROBE_N = 8192, 1 << 20   # the scalar-loop probes' problem
@@ -1412,24 +1467,22 @@ def phase_probed_10m(dev) -> dict:
     print(f"[6a library] {N10:,} x 1024-bit (make_library, batch 2^20): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # bench_probe_sweep's qblock:16 point, built by the sweep itself
+    # (phase 13b evaluates this graph through the sweep's RecallEval)
     _reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    index = HNSWIndex(ndim=1024, connectivity=16, device=dev)
-    index.add(np.arange(N10), packed)
     stage = {}
-    index.build(probes=16, probe_csize=8192, probe_sample=16,
-                probe_granularity="qblock", probe_min_n=0,
-                stage_times=stage)
-    t_build = time.perf_counter() - t0
+    g, t_build = bench_probe_sweep.one_build(
+        packed, "qblock", 16, None, csize=8192, probe_sample=16, seed=0,
+        device=dev, stage_times=stage)
     launches = _counts("tanimoto_bucketmin", "tanimoto_matrix")
-    g = index.graph
+    index = HNSWIndex.from_graph(g, device=dev)
     probed = stage["probed_layers"]
     for name, count in launches.items():
         check(count > 0, f"{name} never launched in the 10M probed build")
     _check_graph(g)
     check(0 in probed, f"layer 0 did not probe (probed layers {probed})")
-    print(f"[6b probed build] {N10:,}, M=16, probes 16 of 8192, qblock, "
+    print(f"[6b probed build] bench_probe_sweep.one_build, {N10:,}, M=16, "
+          f"probes 16 of 8192, qblock, "
           f"layers {g.layer_sizes}, probed layers {probed}: "
           f"{t_build:.1f} s (bisection {stage['bisection']:.2f} s, probe "
           f"tables {stage['probe_tables']:.2f} s, candidates "
@@ -1503,8 +1556,12 @@ def phase_probed_10m(dev) -> dict:
           flush=True)
     check(found >= 500, f"10M traversal found {found} of the true top-1000 "
           f"at 1 % scored (< 50 %)")
-    del index, g, dg, table, dummy, st
-    return rad_launches
+    # phase 13b reads this graph through bench_probe_sweep: keep the
+    # library, the graph (its host arrays) and 6c's recalls
+    g.__dict__.pop("_search_prep", None)
+    g.__dict__.pop("_prefix_prep", None)
+    del index, dg, table, dummy, st
+    return dict(library=packed, graph=g, recall=got)
 
 
 def phase_approx_1m(dev, ctx: dict) -> dict:
@@ -2223,7 +2280,8 @@ def _host_builder(dev, ctx: dict) -> None:
 
 
 def _smiles(ctx: dict) -> None:
-    """9d: the hashed fingerprints of 10,000 of phase 4's store strings."""
+    """9d: the hashed fingerprints of N_SMILES of phase 4's store
+    strings."""
     strings = list(ctx["store"].get_smiles_batch(range(N_SMILES)).values())
     t0 = time.perf_counter()
     a = smiles_fingerprints(strings)
@@ -2791,6 +2849,260 @@ def phase_deployment(dev, ctx: dict) -> None:
           f"11c and after 11d", flush=True)
 
 
+def _scored_keys(traverser, keys) -> list:
+    return [int(keys[m[0]]) for m in traverser.get_molecules()]
+
+
+def _found(order_keys, top: set, budget: int) -> int:
+    return len(top & set(order_keys[:budget]))
+
+
+def phase_chemistry(dev) -> None:
+    """12: the real-chemistry main path at the DUD-Z morgan example's size."""
+    t0 = time.perf_counter()
+    smiles, scores = make_smiles_library(CHEM_N, seed=0)
+    t_lib = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fps = morgan_fingerprints_packed(smiles, radius=2, n_bits=1024)
+    t_fp = time.perf_counter() - t0
+    check(fps.shape == (CHEM_N, 32) and len({r.tobytes() for r in fps})
+          > CHEM_N // 2, "12: degenerate Morgan fingerprints")
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = HNSWIndex(ndim=1024, connectivity=16, expansion_add=400,
+                      device=dev)
+    index.add(np.arange(CHEM_N), fps)
+    index.build()
+    t_build = time.perf_counter() - t0
+    launches = _counts("tanimoto_bucketmin", "tanimoto_matrix")
+    for name, count in launches.items():
+        check(count > 0, f"12: {name} never launched in the build")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dudez.rad.npz")
+        index.save(path)
+        with np.load(path) as z:
+            meta = json.loads(z["meta_json"].tobytes().decode())
+        check(meta.get("fp_format_version") == FP_FORMAT_VERSION,
+              f"12: the saved graph stamps fp_format_version "
+              f"{meta.get('fp_format_version')}, not {FP_FORMAT_VERSION}")
+        loaded = HNSWIndex.load(path, device=dev)
+    check(_same_graph(loaded.graph, index.graph), "12: save/load changed "
+          "the graph")
+    _check_graph(loaded.graph)
+
+    table = {smi: float(sc) for smi, sc in zip(smiles, scores)}
+    store = InMemorySmilesStore({i: smi for i, smi in enumerate(smiles)})
+    traverser = create_local_traverser(loaded, lambda smi: table[smi],
+                                       smiles_store=store, batch_size=4,
+                                       n_score_threads=1)
+    keys = np.asarray(loaded.graph.keys)
+    top = set(np.argsort(scores, kind="stable")[:CHEM_TOP].tolist())
+    t0 = time.perf_counter()
+    traverser.prime()
+    traverser.traverse(n_to_score=CHEM_N // 100)
+    at1 = _found(_scored_keys(traverser, keys), top, CHEM_N // 100)
+    traverser.traverse(n_to_score=CHEM_N // 10)
+    best = traverser.get_best_molecules(100)
+    t_trav = time.perf_counter() - t0
+    order = _scored_keys(traverser, keys)
+    traverser.shutdown()
+    at10 = _found(order, top, CHEM_N // 10)
+    check(len(order) >= CHEM_N // 10 and len(set(order)) == len(order),
+          "12: the order log is short or holds a duplicate")
+    check(all(np.isfinite(sc) and sc == np.float32(scores[keys[i]])
+              for i, sc, _ in best), "12: best molecules carry wrong scores")
+    random_at1 = CHEM_TOP * 0.01
+    check(at1 >= 5 * random_at1, f"12: top-{CHEM_TOP} found {at1} at 1 % "
+          f"(< 5 x random, {random_at1:.1f})")
+    check(at10 > CHEM_TOP // 2, f"12: top-{CHEM_TOP} found {at10} at 10 % "
+          f"(not > 50 %)")
+
+    part = fps[:CHEM_PARITY_N]
+    built = []
+    for where in (dev, torch.device("cpu")):
+        ix = HNSWIndex(ndim=1024, connectivity=16, expansion_add=400,
+                       device=where)
+        ix.add(np.arange(CHEM_PARITY_N), part)
+        built.append(ix.build())
+    check(_same_graph(*built), f"12: the first {CHEM_PARITY_N:,} rows "
+          f"built on the card and on the CPU differ")
+    print(f"[12 chemistry] {CHEM_N:,} SMILES (make_smiles_library, seed 0) "
+          f"{t_lib:.1f} s, Morgan r2/1024 fingerprints {t_fp:.1f} s (one "
+          f"process); HNSWIndex(M=16, efC=400) build {t_build:.2f} s, layers "
+          f"{loaded.graph.layer_sizes}, fp_format_version "
+          f"{FP_FORMAT_VERSION} stamped and read back; launches {launches}",
+          flush=True)
+    print(f"[12 chemistry] prime+traverse to 1 % then 10 %, batch 4: "
+          f"{len(order):,} scored in {t_trav:.2f} s; top-{CHEM_TOP} found "
+          f"{at1} at 1 % ({at1 / random_at1:.1f}x random), {at10} at 10 %; "
+          f"the first {CHEM_PARITY_N:,} rows card = CPU", flush=True)
+
+
+def _json_line(fn, *args, **kw) -> dict:
+    """Run an entry point's ``main`` in this process; its last stdout
+    line, a JSON object (stdout still printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args, **kw)
+    out = buf.getvalue()
+    sys.stdout.write(out)
+    check(rc == 0, f"{fn.__module__}.main returned {rc}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_sweeps(dev, ctx10: dict) -> None:
+    """13: the recall and probe-sweep entry points."""
+    # 13a: bench_recall, the exact builder on the sequential tree library
+    res = {}
+    _reset_counts()
+    t0 = time.perf_counter()
+    rec = _json_line(bench_recall.main,
+                     ["--n", str(RECALL_N), "--q", "256", "--efs", "32",
+                      "128", "--builder", "exact", "--device", str(dev)],
+                     result=res)
+    t_recall = time.perf_counter() - t0
+    launches = _counts("tanimoto_bucketmin", "tanimoto_matrix")
+    check(rec["builder"] == "exact" and [r["ef"] for r in rec["results"]]
+          == [32, 128], f"13a: unexpected record {rec}")
+    r128 = rec["results"][1]["recall"]
+    check(r128 >= RECALL_BAR, f"13a: recall@10 at ef 128 {r128:.4f} < "
+          f"{RECALL_BAR}")
+    q = to_torch_packed(res["queries"][:TRUTH_SAMPLE], dev)
+    db = to_torch_packed(np.asarray(res["graph"].packed), dev)
+    _, plain = bruteforce_topk(q, db, 10)
+    check(np.array_equal(plain.cpu().numpy(), res["truth"][:TRUTH_SAMPLE]),
+          f"13a: bench_recall's truth differs from the plain "
+          f"bruteforce_topk on its first {TRUTH_SAMPLE} queries")
+    del q, db, res
+    print(f"[13a bench_recall] {RECALL_N:,} tree rows, exact builder: "
+          + "; ".join(f"ef {r['ef']} recall@10 {r['recall']:.4f}, "
+                      f"{r['qps']:,.0f} q/s, {r['qps_chained']:,.0f} q/s "
+                      f"chained" for r in rec["results"])
+          + f"; {t_recall:.1f} s; truth = plain on {TRUTH_SAMPLE} queries; "
+          f"launches {launches}", flush=True)
+
+    # 13b: the sweep's evaluation of phase 6b's graph (the sweep's own
+    # qblock:16 build) over phase 6's library: 6c's recalls
+    _reset_counts()
+    t0 = time.perf_counter()
+    evaluate = bench_probe_sweep.RecallEval(
+        ctx10["library"], bench_probe_sweep.member_queries(N10, 500),
+        [32, 128], dev)
+    got = evaluate(ctx10["graph"])
+    t_eval = time.perf_counter() - t0
+    launches = _counts("tanimoto_bucketmin", "tanimoto_matrix")
+    want = ctx10["recall"]
+    check(got["edge_recall_at_10"] == round(want["edge"], 4)
+          and got["recall_at_10_ef32"] == want["ef32"]
+          and got["recall_at_10_ef128"] == want["ef128"],
+          f"13b: the sweep's recalls {got} differ from 6c's {want}")
+    check(launches["tanimoto_matrix"] > 0, "13b: the truth never launched "
+          "tanimoto_matrix")
+    print(f"[13b probe sweep] RecallEval of 6b's 10M qblock:16 graph (seed "
+          f"0): {got} = 6c's, truth taken anew; {t_eval:.1f} s; launches "
+          f"{launches}", flush=True)
+    del evaluate
+
+    # 13c: the morgan library, the exact baseline and one probed point
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = _json_line(bench_probe_sweep.main, [
+            "--n", str(SWEEP_MORGAN_N), "--library", "morgan", "--csize",
+            "4096", "--sweep", "exact:0,qblock:2", "--recall", "200",
+            "--ef", "32,128", "--results", os.path.join(tmp, "r.jsonl"),
+            "--cache-dir", tmp, "--device", str(dev)])
+        t_sweep = time.perf_counter() - t0
+        launches = _counts("tanimoto_bucketmin", "tanimoto_matrix")
+        with open(os.path.join(tmp, "r.jsonl")) as f:
+            lines = [json.loads(x) for x in f]
+    check(out["metric"] == "probe_sweep" and out["n"] == SWEEP_MORGAN_N
+          and out["results"] == lines and len(lines) == 2, f"13c: {out}")
+    for r in lines:
+        check(r["library"] == "morgan" and all(
+            0 < r[k] <= 1 for k in ("edge_recall_at_10",
+                                    "recall_at_10_ef32",
+                                    "recall_at_10_ef128")),
+              f"13c: bad record {r}")
+    print(f"[13c morgan sweep] {SWEEP_MORGAN_N:,} molecules, csize 4096: "
+          + "; ".join(f"{r['granularity']}:{r['probes']} build "
+                      f"{r['build_s']} s, edge {r['edge_recall_at_10']}, "
+                      f"ef 32 {r['recall_at_10_ef32']:.4f}, ef 128 "
+                      f"{r['recall_at_10_ef128']:.4f}" for r in lines)
+          + f"; {t_sweep:.1f} s; launches {launches}", flush=True)
+
+
+def _scale_run(extra: list) -> dict:
+    """bench_scale.main at 100M nodes; the record checked against its
+    tensors."""
+    base = torch.cuda.memory_allocated()
+    res = {}
+    rec = _json_line(bench_scale.main,
+                     ["--n", str(SCALE_N), "--m", "8", "--batch", "1024",
+                      "--budget", str(SCALE_BUDGET), "--runs", "1", *extra],
+                     result=res)
+    st = res["state"]
+    log = tdev.read_order_log(st)
+    what = " ".join(extra)
+    check(all(r["n_scored"] >= SCALE_BUDGET
+              for r in (rec["first_run"], *rec["runs"])),
+          f"14 {what}: scored below the budget: {rec['runs']}")
+    check(rec["order_log_distinct"] and len(np.unique(log)) == len(log)
+          and len(log) == int(st.n_scored), f"14 {what}: the order log "
+          f"holds a duplicate")
+    held = (rec["graph_bytes"] + rec["score_source_bytes"]
+            + sum(rec["state_bytes"].values()))
+    peak = rec["peak_bytes"] - base
+    check(abs(peak - held) <= PEAK_TOL * held, f"14 {what}: peak "
+          f"{peak:,} bytes is not within {PEAK_TOL:.0%} of the {held:,} "
+          f"bytes of its tensors")
+    best = min(rec["runs"], key=lambda r: r["seconds"])
+    print(f"[14 scale] {what}: {SCALE_N:,} nodes, m 8, batch 1024, budget "
+          f"{SCALE_BUDGET:,}: {rec['value']:,.0f} scored/s "
+          f"({best['n_scored']:,} in {best['seconds']:.2f} s, "
+          f"{best['n_steps']} steps, {1e3 * rec['seconds_per_step']:.2f} ms "
+          f"a step, dropped {best['n_dropped']}); peak {peak / 2**30:.3f} "
+          f"GiB over the {held / 2**30:.3f} GiB of graph "
+          f"({rec['graph_bytes']:,}), score source "
+          f"({rec['score_source_bytes']:,}) and state (scores "
+          f"{rec['state_bytes']['scores']:,} bytes)", flush=True)
+    del res, st
+    return rec
+
+
+def phase_scale(dev) -> None:
+    """14: the engine at 100M nodes, then one 200,000-node graph run in id
+    mode on the CPU and on the card."""
+    t0 = time.perf_counter()
+    _scale_run(["--mode", "id", "--no-score-table"])
+    _scale_run(["--mode", "hash"])
+    t_runs = time.perf_counter() - t0
+
+    dg, sizes = bench_scale.make_device_graph(SCALE_PARITY_N, 8, seed=0,
+                                              device=dev)
+    cpu = torch.device("cpu")
+    host = dataclasses.replace(dg, adj=dg.adj.cpu(),
+                               offsets=dg.offsets.cpu())
+    logs = []
+    for g in (dg, host):
+        run, id_score = bench_scale.make_id_run(1024, True)
+        st = tdev.init_state(g, score_table=False)
+        top = torch.arange(sizes[-1] if sizes[-1] > 1 else sizes[-2],
+                           dtype=torch.int32, device=g.device)
+        st = run(tdev.prime(st, g, top, id_score(top)),
+                 SCALE_PARITY_BUDGET, g)
+        logs.append(tdev.read_order_log(st))
+    check(np.array_equal(logs[0], logs[1]) and len(logs[0])
+          >= SCALE_PARITY_BUDGET, "14: the id-mode order logs of one "
+          "200,000-node graph differ between the card and the CPU")
+    del dg, host
+    print(f"[14 scale] 100M runs {t_runs:.1f} s; {SCALE_PARITY_N:,}-node "
+          f"graph, id mode without the table, batch 1024: {len(logs[0]):,} "
+          f"scored, the same order on the card and on {cpu}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2804,7 +3116,7 @@ def main() -> int:
         phase_build_parity(dev)
         launches, context = phase_main_path(dev, N, N_TO_SCORE)
         launches.update(phase_device_scored(dev, context))
-        phase_probed_10m(dev)
+        ctx10 = phase_probed_10m(dev)
         launches.update(phase_approx_1m(dev, context))
         phase_probed_parity(dev)
         nn_timings, nn_launches = phase_nn(dev)
@@ -2814,6 +3126,10 @@ def main() -> int:
         phase_port_forms(dev, context)
         phase_other_builders(dev)
         phase_deployment(dev, context)
+        phase_chemistry(dev)
+        phase_sweeps(dev, ctx10)
+        del ctx10
+        phase_scale(dev)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

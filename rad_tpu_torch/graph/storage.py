@@ -28,16 +28,16 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+# the fingerprint format version stamped into saved graphs: the in-tree
+# Morgan fingerprinter's, equal to rad_tpu's, so neither package warns on
+# loading the other's files
+from rad_tpu_torch.chem.morgan import FP_FORMAT_VERSION
+
 logger = logging.getLogger(__name__)
 
 __all__ = ["HNSWGraph", "LayerStats", "NpzStreamWriter", "ArangeKeys",
            "DerivedLevels", "host_keys_view", "neighbor_valid_mask", "FP_FORMAT_VERSION",
            "ADJ_SENTINEL_U32"]
-
-# The fingerprint format version ``rad_tpu`` stamps into saved graphs
-# (rad_tpu/chem/morgan.py FP_FORMAT_VERSION). Files from either package
-# carry the same value, so neither warns on loading the other's.
-FP_FORMAT_VERSION = 3
 
 # uint32 adjacency sentinel (tables whose layer has > 2**31 rows)
 ADJ_SENTINEL_U32 = np.uint32(0xFFFFFFFF)

@@ -234,7 +234,8 @@ def auto_frontier_capacity(n_rows: int, cap_max: int = 1 << 22) -> int:
 def init_state(dg: DeviceGraph, frontier_capacity: int | None = None,
                log_capacity: int | None = None,
                buffer_capacity: int = 1 << 15,
-               head_capacity: int | None | str = "auto") -> TraversalState:
+               head_capacity: int | None | str = "auto",
+               score_table: bool = True) -> TraversalState:
     """Empty traversal state on ``dg``'s device.
 
     The frontier is a sorted head plus an append buffer (merged by one
@@ -245,6 +246,12 @@ def init_state(dg: DeviceGraph, frontier_capacity: int | None = None,
     :data:`AUTO_HEAD_CAPACITY`) once the capacity reaches
     :data:`AUTO_HEAD_THRESHOLD`; ``None`` forces a single level.
     ``frontier_capacity=None`` auto-sizes (:func:`auto_frontier_capacity`).
+
+    ``score_table=False`` allocates a one-slot ``scores`` dummy (plus its
+    sentinel) in place of the ``[N]`` f32 table, which is never allocated:
+    for state ops whose ``gather_scores`` computes a candidate's score
+    instead of reading it (an id-mode scorer). :func:`integrate` refuses
+    such a state under the dense ops and under ``fused_candidates``.
     """
     if frontier_capacity is None:
         frontier_capacity = auto_frontier_capacity(dg.n_rows)
@@ -279,7 +286,8 @@ def init_state(dg: DeviceGraph, frontier_capacity: int | None = None,
         watermark=scalar(INF, torch.float32),
         enqueued=full(dg.n_rows + 1, False, torch.bool),
         scored=full(dg.n_nodes + 1, False, torch.bool),
-        scores=full(dg.n_nodes + 1, INF, torch.float32),
+        scores=(full(dg.n_nodes + 1, INF, torch.float32) if score_table
+                else torch.zeros((2,), dtype=torch.float32, device=dev)),
         order_log=full(cap + 1, -1, torch.int32),
         n_scored=scalar(0),
         n_dropped=scalar(0),
@@ -329,7 +337,13 @@ def _first_occurrence_scatter(values: torch.Tensor,
 class DenseStateOps:
     """Access layer for the big per-node/per-row state tables (dense,
     device-resident). Gathers take pre-clamped indices; scatters send
-    out-of-range indices to the sentinel slot."""
+    out-of-range indices to the sentinel slot.
+
+    ``gather_scores`` / ``scatter_scores`` are the score table's own pair
+    (the dense gather and scatter here): an override that computes a
+    candidate's score from its id, with a no-op scatter, lets a state
+    made with ``init_state(score_table=False)`` run without the ``[N]``
+    table."""
 
     @staticmethod
     def gather(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -337,6 +351,14 @@ class DenseStateOps:
 
     @staticmethod
     def scatter_(arr: torch.Tensor, idx: torch.Tensor, vals) -> None:
+        _set_drop_(arr, idx, vals)
+
+    @staticmethod
+    def gather_scores(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        return arr[idx.long()]
+
+    @staticmethod
+    def scatter_scores(arr: torch.Tensor, idx: torch.Tensor, vals) -> None:
         _set_drop_(arr, idx, vals)
 
     @staticmethod
@@ -350,6 +372,27 @@ class DenseStateOps:
 
 
 DENSE_OPS = DenseStateOps()
+
+
+def _check_score_table(state: TraversalState, n: int, ops,
+                       fused_candidates: bool) -> None:
+    """Refuse a one-slot score dummy (``init_state(score_table=False)``)
+    where the ``[N]`` table would be indexed past the slot (a device
+    assert on CUDA): under K2, which reads and writes the table in its
+    body, whatever the ops, and under ops that do not override
+    ``gather_scores``."""
+    if state.scores.shape[0] - 1 >= n:
+        return
+    if fused_candidates:
+        raise ValueError(
+            "the state holds a one-slot score dummy "
+            "(init_state(score_table=False)); fused_candidates=True needs "
+            "the [N] score table")
+    if type(ops).gather_scores is DenseStateOps.gather_scores:
+        raise ValueError(
+            "the state holds a one-slot score dummy "
+            "(init_state(score_table=False)); integrate it with state ops "
+            "that override gather_scores")
 
 
 def _refill_two_level(state: TraversalState) -> None:
@@ -484,7 +527,11 @@ def integrate(state: TraversalState, dg: DeviceGraph,
     check-and-set as the K2 kernel
     (:func:`~rad_tpu_torch.traverse.candidate_ops.integrate_candidates`;
     its plain twin for a CPU state) — the same masks whenever
-    ``to_score`` holds no duplicate id, which the engine guarantees."""
+    ``to_score`` holds no duplicate id, which the engine guarantees. K2
+    reads and writes the ``[N]`` score table, so on a state with a
+    one-slot dummy (``init_state(score_table=False)``) it raises
+    ``ValueError``, whatever the ops; unfused, such a state needs ops
+    that override ``gather_scores``, else ``ValueError`` too."""
     n = dg.n_nodes
     cap = state.order_log.shape[0] - 1
     dev = state.f_score.device
@@ -495,6 +542,7 @@ def integrate(state: TraversalState, dg: DeviceGraph,
     lev_flat = exp_level.repeat_interleave(m0)
     row_flat = dg.offsets[lev_flat.long()] + safe_cand
 
+    _check_score_table(state, n, ops, fused_candidates)
     if fused_candidates:
         *_, fresh, push, cand_score = candidate_ops.integrate_candidates(
             to_score, new_scores, cand_flat, row_flat, state.scored[:n],
@@ -506,7 +554,7 @@ def integrate(state: TraversalState, dg: DeviceGraph,
         fresh = ts_ok & ~ops.gather(state.scored,
                                     torch.where(ts_ok, to_score, 0))
         ts_idx = torch.where(fresh, to_score, n)
-        ops.scatter_(state.scores, ts_idx, new_scores)
+        ops.scatter_scores(state.scores, ts_idx, new_scores)
         ops.scatter_(state.scored, ts_idx, True)
 
         # -- candidate enqueue: check-and-set at the expansion level
@@ -517,8 +565,8 @@ def integrate(state: TraversalState, dg: DeviceGraph,
         push = cand_ok & not_enq & first
         ops.scatter_(state.enqueued,
                      torch.where(push, row_flat, dg.n_rows), True)
-        cand_score = ops.gather(state.scores,
-                                safe_cand).masked_fill(~push, INF)
+        cand_score = ops.gather_scores(state.scores,
+                                       safe_cand).masked_fill(~push, INF)
 
     pos_in_batch = torch.cumsum(fresh, 0) - 1
     log_pos = torch.where(fresh, (state.n_scored + pos_in_batch) % cap, cap)
@@ -698,7 +746,11 @@ def read_order_log(state: TraversalState) -> np.ndarray:
 
 
 def gather_scores(state: TraversalState, ids) -> np.ndarray:
-    """Host float array of ``state.scores[ids]`` (gathered on device)."""
+    """Host float array of ``state.scores[ids]`` (gathered on device); a
+    state without the score table raises ``ValueError``."""
+    if state.scores.shape[0] - 1 < state.scored.shape[0] - 1:
+        raise ValueError("the state holds no score table "
+                         "(init_state(score_table=False))")
     ids = np.asarray(ids)
     if ids.size == 0:
         return np.zeros((0,), np.float32)

@@ -280,10 +280,11 @@ def test_entry_points_default_to_the_card(library, monkeypatch):
 
 def test_port_never_loads_jax():
     """A fresh interpreter runs a tiny quick start on the port, imports
-    its benchmark and command-line entry points, runs a 30-scored
+    its benchmark and command-line entry points, fingerprints 20 library
+    molecules with its Morgan copy, runs a 30-scored
     distributed traversal and one neighbor fetch over loopback HTTP, and
     must not have imported jax, rad_tpu, the repo's benchmarks or
-    requests."""
+    examples, or requests."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -310,6 +311,12 @@ def test_port_never_loads_jax():
         import rad_tpu_torch.build.reference
         import rad_tpu_torch.scripts.build_index
         import rad_tpu_torch.scripts.start_hnsw_server
+        import rad_tpu_torch.bench_recall, rad_tpu_torch.bench_probe_sweep
+        import rad_tpu_torch.bench_scale
+        from rad_tpu_torch.chem import morgan_fingerprints_packed
+        from rad_tpu_torch.chem.library import make_smiles_library
+        assert morgan_fingerprints_packed(
+            make_smiles_library(20, seed=0)[0]).shape == (20, 32)
         import threading
         from rad_tpu_torch import create_distributed_traverser
         from rad_tpu_torch.server import create_hnsw_server
@@ -332,6 +339,8 @@ def test_port_never_loads_jax():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "rad_tpu",
                                             "bench", "benchmarks",
+                                            "examples",
+                                            "enrichment_example",
                                             "requests"))
         assert not bad, bad
         print("isolated")

@@ -24,6 +24,7 @@ SUBMODULES = [
     "api.factories", "api.index", "api.traverser",
     "build.device", "build.exact", "build.incremental", "build.partition",
     "build.probe", "build.reference",
+    "chem.library", "chem.morgan",
     "fp.kernels", "fp.pack", "fp.tanimoto",
     "graph.adjpack", "graph.storage",
     "search.knn", "search.visited",
@@ -35,13 +36,11 @@ SUBMODULES = [
     "traverse.structures", "traverse.workers",
     "utils.profiling",
 ]
-PACKAGES = ["api", "build", "fp", "graph", "search", "server", "service",
+PACKAGES = ["api", "build", "chem", "fp", "graph", "search", "server", "service",
             "store", "traverse", "utils"]
 
 Q1_MULTI = "ROADMAP Queue 1, 'Multi-device'"
 Q1_NATIVE = "ROADMAP Queue 1, 'The native host path'"
-Q1_SCALE = ("ROADMAP Queue 1, the port of benchmarks/bench_scale.py and "
-            "its id-mode state ops")
 NOT_PORTED = "not ported by design (ROADMAP, 'What not to carry over')"
 LAYOUT = "an internal laid out differently"
 
@@ -77,10 +76,8 @@ ALLOWED = {
     "traverse.device:integrate_impl": ("missing", LAYOUT),
     "traverse.device:DenseStateOps.gather_enqueued": ("missing", LAYOUT),
     "traverse.device:DenseStateOps.gather_scored": ("missing", LAYOUT),
-    "traverse.device:DenseStateOps.gather_scores": ("missing", LAYOUT),
     "traverse.device:DenseStateOps.scatter_enqueued": ("missing", LAYOUT),
     "traverse.device:DenseStateOps.scatter_scored": ("missing", LAYOUT),
-    "traverse.device:DenseStateOps.scatter_scores": ("missing", LAYOUT),
     "utils.profiling:aggregate_xla_ops": (
         "missing", LAYOUT + ": an XLA dump's reader; the port reads "
         "torch.profiler's as aggregate_device_ops"),
@@ -115,10 +112,6 @@ ALLOWED = {
         "missing adj_group; extra offsets_host",
         NOT_PORTED + " (adj_group); offsets_host is the host copy of the "
         "layer offsets, " + LAYOUT),
-    "traverse.device:init_state": (
-        "missing score_table",
-        Q1_SCALE + ": the one-slot score dummy has no caller in the port "
-        "until that benchmark's id-mode state ops exist"),
     "traverse.device:expand": (
         "missing gather_adj, refill",
         Q1_MULTI + " brings gather_adj (the pod engine's row gather); "

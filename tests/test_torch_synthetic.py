@@ -26,7 +26,8 @@ def _example_module(name="enrichment_example"):
 
 
 @pytest.mark.parametrize("n,n_bits,batch", [(4500, 256, 128),
-                                            (300, 64, 1 << 16)])
+                                            (300, 64, 1 << 16),
+                                            (45_000, 64, 1 << 14)])
 def test_make_library_matches_example_recipe(n, n_bits, batch):
     ref_packed, ref_scores = _example_module().make_library_batched(
         n, n_bits=n_bits, seed=3, batch=batch)
@@ -34,6 +35,28 @@ def test_make_library_matches_example_recipe(n, n_bits, batch):
     assert packed.dtype == np.uint32 and packed.shape == (n, n_bits // 32)
     np.testing.assert_array_equal(packed, ref_packed)
     np.testing.assert_array_equal(scores, ref_scores)
+
+
+@pytest.mark.parametrize("rows,chunk_rows", [(1, 1), (37, 5), (64, 64),
+                                             (100, 7)])
+def test_chunked_mutation_draws_the_whole_draws(rows, chunk_rows):
+    """The library's mutation step, drawn a chunk of rows at a time on
+    threads, equals the two whole draws it replaces, and leaves the
+    generator where they leave it, its buffered 32-bit half included."""
+    from rad_tpu_torch.synthetic import _mutate
+
+    child = (np.random.default_rng(5).random((rows, 96)) < 0.3).astype(
+        np.uint8)
+    a, b = np.random.default_rng(11), np.random.default_rng(11)
+    for g in (a, b):
+        g.integers(0, 7, size=3)     # leaves a buffered 32-bit half
+    want = np.where(a.random((rows, 96)) < 0.06,
+                    a.random((rows, 96)) < 0.12, child).astype(np.uint8)
+    got = _mutate(b, child, 0.06, 0.12, chunk_rows=chunk_rows)
+    np.testing.assert_array_equal(got, want)
+    assert b.bit_generator.state == a.bit_generator.state
+    np.testing.assert_array_equal(b.integers(0, 1000, 50),
+                                  a.integers(0, 1000, 50))
 
 
 def test_receptor_tables_match_panel_example_recipe():
