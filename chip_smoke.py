@@ -211,7 +211,39 @@ Phases, one status line each (plus detail lines):
    order log, the peak of allocated memory within 15 % of the bytes of
    the graph, the score source and the state; then one 200,000-node graph
    run in id mode without the table on the card and on the CPU: the same
-   order log.
+   order log;
+15. the multi-device layer on one card as four shards of phase 4's graph
+   (``make_mesh(4, devices=[cuda:0] * 4)``): (a) ``build_hnsw_exact(mesh=
+   ...)`` on phase 4's library at phase 4's settings, edge-identical to
+   phase 4's graph, seconds per stage, the peak of allocated memory and
+   the launches of both Tanimoto kernels; (b) ``create_pod_traverser``
+   with phase 4's table-lookup scorer, ``prime`` + ``traverse(10_000)`` +
+   ``get_best_molecules(100)``, the state replicated and split: at
+   ``pipeline_depth=1`` phase 4's order, at depth 2 one duplicate-free
+   scored set with every score its key's; (c) ``make_sharded_step`` and
+   ``make_sharded_step_full`` to 1 % at batch 64 against single-card
+   ``fused_run`` runs of the same budget, batch and frontier layout (order
+   log, scored set, scores, drops), ms and kernel launches a step at D =
+   1, 2, 4 beside the single-card step's, the synchronisations of a step
+   (``torch.cuda.set_sync_debug_mode("warn")``) and ``TrafficMeter``'s
+   imbalance; (d) ``make_sharded_step_multi`` with 8 Tanimoto targets,
+   each campaign equal to its solo pod run; (e) ``make_sharded_search``
+   on the 1-D mesh and ``make_sharded_search_2d`` on a (2, 2) mesh over
+   500 member queries at ef 64: ids and distances equal to
+   ``search_device`` (one expansion an iteration, the query block each
+   data row searches), and ``sharded_bruteforce_topk`` equal to
+   ``bruteforce_topk`` on 50 queries; (f) ``shard_graph_streamed`` over
+   10,000,000 nodes from host row producers (``bench_scale``'s graph rule,
+   m = 8, random 1024-bit rows, numpy generators seeded by shard), the pod
+   step to 100,000 scored, the peak of allocated memory within 15 % of
+   the bytes of the graph and the state; (g) ``initialize_multihost`` at
+   world size 1 over NCCL (a localhost TCP store), ``global_mesh`` and
+   one sharded step: 15c's state after one step.
+
+The ``kernels`` line's ``launches`` are each kernel's counts on its own
+single-card path (the main path, or the later path that runs it); its
+``pod_launches`` are the counts on phase 15's paths (the sharded build
+and the sharded brute force), 0 for a kernel those paths do not run.
 
 Phase 2 also holds the three probes to their twins on the benchmark's
 inputs (8,192 candidates over 2^20 rows); ``gather`` on one CTA and on a
@@ -3103,6 +3135,456 @@ def phase_scale(dev) -> None:
           f"scored, the same order on the card and on {cpu}", flush=True)
 
 
+POD_D = 4                  # phase 15: shards on the one card
+POD_BATCH = 64
+POD_T = 8                  # 15d: campaigns
+POD_QUERIES, POD_EF = 500, 64
+STREAM_N, STREAM_BUDGET = 10_000_000, 100_000
+
+
+def _pod_mesh(dev, d: int, shape=None, axes=("graph",)):
+    from rad_tpu_torch.parallel import make_mesh
+    return make_mesh(shape or d, axis_names=axes, devices=[dev] * d)
+
+
+def _pod_build(dev, ctx: dict, mesh) -> dict:
+    """15a: the mesh build of phase 4's library, edge-identical to it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    stage = {}
+    t0 = time.perf_counter()
+    g = build_hnsw_exact(ctx["library"], keys=np.arange(N), connectivity=16,
+                         seed=ctx["index"].seed, mesh=mesh,
+                         stage_times=stage)
+    dt = time.perf_counter() - t0
+    launches = _counts("tanimoto_matrix", "tanimoto_bucketmin")
+    peak = torch.cuda.max_memory_allocated() - base
+    check(_same_graph(g, ctx["graph"]), "15a: the mesh build is not "
+          "edge-identical to phase 4's graph")
+    check(launches["tanimoto_bucketmin"] > 0, "15a: the bucket kernel never "
+          "launched on the sharded build")
+    s4 = ctx["stage"]
+    print(f"[15a pod build] {N:,} x 1024-bit on {POD_D} shards: {dt:.2f} s "
+          f"(candidates {stage['candidates']:.2f} s, selection "
+          f"{stage['selection']:.2f} s, symmetrization "
+          f"{stage['symmetrization']:.2f} s; phase 4: "
+          f"{s4['candidates']:.2f} / {s4['selection']:.2f} / "
+          f"{s4['symmetrization']:.2f} s); edge-identical to phase 4's "
+          f"graph; peak allocated {peak / 2**30:.3f} GiB above the "
+          f"{base / 2**30:.3f} GiB resident; launches {launches}",
+          flush=True)
+    return launches
+
+
+def _pod_host(ctx: dict, mesh) -> None:
+    """15b: the host-scored pod through the user entry point."""
+    from rad_tpu_torch import create_pod_traverser
+    scoring_fn, host_ids = ctx["scoring_fn"], [m[0] for m in ctx["mols"]]
+    keys, true_scores = ctx["keys"], ctx["true_scores"]
+    sets = []
+    for depth in (1, 2):
+        for shard_state in (False, True):
+            t = create_pod_traverser(ctx["index"], scoring_fn, mesh=mesh,
+                                     smiles_store=ctx["store"],
+                                     batch_size=8, shard_state=shard_state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.prime()
+            stats = t.traverse(n_to_score=N_TO_SCORE, pipeline_depth=depth)
+            best = t.get_best_molecules(100)
+            dt = time.perf_counter() - t0
+            mols = t.get_molecules()
+            t.shutdown()
+            ids = [m[0] for m in mols]
+            what = f"15b depth {depth} shard_state={shard_state}"
+            check(stats["n_scored"] >= N_TO_SCORE and len(best) == 100,
+                  f"{what}: short run")
+            check(len(set(ids)) == len(ids), f"{what}: duplicate ids")
+            check(all(s == np.float32(true_scores[keys[i]])
+                      for i, s, _ in mols), f"{what}: a score is not its "
+                  f"key's")
+            if depth == 1:
+                check(ids == host_ids, f"{what}: the order differs from "
+                      f"phase 4's single-card host-scored run")
+            else:
+                sets.append(set(ids))
+            print(f"[15b pod host] {what}: {stats['n_scored']:,} scored in "
+                  f"{dt:.2f} s ({stats['n_scored'] / dt:,.0f} scored/s, "
+                  f"{stats['steps']} steps, host scoring "
+                  f"{stats['scoring_time']:.2f} s); "
+                  + ("phase 4's order" if depth == 1 else
+                     "no duplicate, every score its key's"), flush=True)
+    check(sets[0] == sets[1], "15b: the depth-2 scored sets differ between "
+          "the replicated and the split state")
+
+
+def _pod_run(step, st, n_to_score: int, target, tpop) -> tuple:
+    """A pod step looped as fused_run loops: (state, steps, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    while True:
+        n_scored, live = torch.stack([st.n_scored.long(),
+                                      st.f_live.long()]).tolist()
+        if n_scored >= n_to_score or live <= 0:
+            break
+        st = step(st, target, tpop)
+        steps += 1
+    torch.cuda.synchronize()
+    return st, steps, time.perf_counter() - t0
+
+
+def _launches_a_step(step_fn, n: int = 10) -> tuple:
+    """Kernel launches and wall ms of one step, from a profiled window."""
+    _, wall_ms, (_, _, calls, _) = profiling._profiled(
+        lambda: [step_fn() for _ in range(n)])
+    return calls.get("cudaLaunchKernel", 0) / n, wall_ms / n
+
+
+def _pod_steps(dev, ctx: dict, mesh) -> dict:
+    """15c: the device-scored pod step against fused_run."""
+    import warnings
+
+    from rad_tpu_torch.parallel import sharded as sh
+    from rad_tpu_torch.parallel.pod import _padded_device_graph
+
+    graph, dg, packed, pops = ctx["graph"], ctx["dg"], ctx["packed"], \
+        ctx["pops"]
+    n_top = ctx["n_top"]
+    target, tpop = packed[TARGET], pops[TARGET]
+    seeds = torch.arange(n_top, dtype=torch.int32, device=dev)
+    seed_scores = tanimoto_rows_to_target(packed[:n_top], pops[:n_top],
+                                          target, tpop)
+    cap = tdev.auto_frontier_capacity(R)
+    budget = N_TO_SCORE
+    t0 = time.perf_counter()
+    sg = sh.shard_graph(graph, mesh)
+    torch.cuda.synchronize()
+    t_shard = time.perf_counter() - t0
+
+    def single(head):
+        st = tdev.prime(tdev.init_state(dg, cap, head_capacity=head), dg,
+                        seeds, seed_scores)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = tdev.fused_run(st, dg, packed, pops, target, tpop, budget,
+                            batch=POD_BATCH)
+        torch.cuda.synchronize()
+        return st, time.perf_counter() - t0
+
+    def pod(full: bool, traffic: bool = False, g=None):
+        g = sg if g is None else g
+        if full:
+            pdg = _padded_device_graph(g)
+            st = sh.init_state_sharded(g, mesh, cap)
+            step = sh.make_sharded_step_full(g, mesh, POD_BATCH,
+                                             traffic=traffic)
+        else:
+            pdg = g.device_graph()
+            st = tdev.init_state(pdg, cap, head_capacity=None)
+            step = sh.make_sharded_step(g, mesh, POD_BATCH, traffic=traffic)
+        return tdev.prime(st, pdg, seeds, seed_scores), step
+
+    ref, t_ref = single(None)
+    want = tdev.state_to_reference_arrays(ref)
+    for full in (False, True):
+        st, step = pod(full)
+        st, steps, dt = _pod_run(step, st, budget, target, tpop)
+        got = sh.sharded_state_to_reference_arrays(st)
+        for k in ("order_log", "n_dropped", "n_scored"):
+            check(np.array_equal(got[k], want[k]),
+                  f"15c full={full}: {k} differs from fused_run's")
+        for k in ("scored", "scores"):
+            check(np.array_equal(got[k][:N], want[k]),
+                  f"15c full={full}: {k} differs from fused_run's")
+        name = "make_sharded_step_full" if full else "make_sharded_step"
+        print(f"[15c pod step] {name} D={POD_D} batch {POD_BATCH}: "
+              f"{int(st.n_scored):,} scored in {steps} steps, {dt:.2f} s "
+              f"({int(st.n_scored) / dt:,.0f} scored/s, "
+              f"{dt / steps * 1e3:.3f} ms/step; fused_run "
+              f"{t_ref / int(ref.n_steps) * 1e3:.3f} ms/step); order log, "
+              f"scored set, scores and drops equal fused_run's", flush=True)
+    # the two-level layout of phase 5 reaches the same state through the
+    # pod step as through fused_run
+    ref2, _ = single("auto")
+    st = tdev.prime(tdev.init_state(sg.device_graph(), cap), sg.device_graph(),
+                    seeds, seed_scores)
+    st, _, _ = _pod_run(sh.make_sharded_step(sg, mesh, POD_BATCH), st, budget,
+                        target, tpop)
+    check(_states_equal(st, ref2), "15c: the two-level pod run differs "
+          "from fused_run's")
+
+    # launches and ms a step by D, beside the single-card step
+    per = {}
+    warm, _ = single(None)
+    per["single"] = _launches_a_step(lambda: tdev.fused_step(
+        warm, dg, packed, pops, target, tpop, POD_BATCH))
+    for d in (1, 2, POD_D):
+        m = mesh if d == POD_D else _pod_mesh(dev, d)
+        g = sg if d == POD_D else sh.shard_graph(graph, m)
+        st, step = pod(False, g=g) if d == POD_D else (
+            tdev.prime(tdev.init_state(g.device_graph(), cap,
+                                       head_capacity=None),
+                       g.device_graph(), seeds, seed_scores),
+            sh.make_sharded_step(g, m, POD_BATCH))
+        st, _, _ = _pod_run(step, st, budget, target, tpop)
+        holder = [st]
+
+        def one():
+            holder[0] = step(holder[0], target, tpop)
+        per[d] = _launches_a_step(one)
+        del g, st, holder
+    st, step = pod(True)
+    st, _, _ = _pod_run(step, st, budget, target, tpop)
+    holder = [st]
+
+    def one_full():
+        holder[0] = step(holder[0], target, tpop)
+    per[f"{POD_D} full"] = _launches_a_step(one_full)
+    del st, holder
+    line = "; ".join(f"{k}: {v[0]:.1f} launches, {v[1]:.3f} ms"
+                     for k, v in per.items())
+    print(f"[15c pod step] a step under the profiler (batch {POD_BATCH}, "
+          f"10 steps past 1 %): {line}", flush=True)
+
+    # synchronisations of a pod step
+    st, step = pod(False)
+    st, _, _ = _pod_run(step, st, budget, target, tpop)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(5):
+                st = step(st, target, tpop)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    # traffic: the rows each shard served over the run
+    meter = sh.TrafficMeter(POD_D)
+    st, step = pod(False, traffic=True)
+    while int(st.n_scored) < budget:
+        st, tr = step(st, target, tpop)
+        meter.add(tr)
+    stats = meter.stats()
+    print(f"[15c pod step] {syncs / 5:.1f} synchronisations a step "
+          f"(set_sync_debug_mode, 5 steps; sharding {N:,} nodes took "
+          f"{t_shard:.2f} s); traffic over {stats['steps']} steps: adjacency "
+          f"rows {stats['adj_rows_per_shard']} (imbalance "
+          f"{stats['adj_imbalance']:.3f}), fingerprint rows "
+          f"{stats['fp_rows_per_shard']} (imbalance "
+          f"{stats['fp_imbalance']:.3f})", flush=True)
+    one, step1 = pod(False)
+    return dict(sg=sg, one_step=tdev.state_to_reference_arrays(
+        step1(one, target, tpop)), seeds=seeds, seed_scores=seed_scores,
+        target=target, tpop=tpop, cap=cap)
+
+
+def _pod_multi(dev, ctx: dict, mesh, sg) -> None:
+    """15d: the sharded panel step; each campaign its solo pod run."""
+    from rad_tpu_torch.parallel import sharded as sh
+    packed, pops, n_top = ctx["packed"], ctx["pops"], ctx["n_top"]
+    rows = torch.arange(POD_T, device=dev) * 7919 % N
+    targets, t_pops = packed[rows], pops[rows]
+    dg = sg.device_graph()
+    ids = torch.arange(n_top, dtype=torch.int32, device=dev)
+    seeds = torch.stack([tanimoto_rows_to_target(packed[:n_top],
+                                                 pops[:n_top], t, tp)
+                         for t, tp in zip(targets, t_pops)])
+    cap = tdev.auto_frontier_capacity(R)
+    states = multi.prime_multi(multi.init_multi(dg, POD_T, cap), dg, ids,
+                               seeds)
+    step = sh.make_sharded_step_multi(sg, mesh, POD_BATCH)
+    budgets = np.full(POD_T, N_TO_SCORE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    while bool(multi.multi_active_mask(states, N_TO_SCORE).any()):
+        states = step(states, targets, t_pops, budgets)
+        steps += 1
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    solo_step = sh.make_sharded_step(sg, mesh, POD_BATCH)
+    for t in range(POD_T):
+        st = tdev.prime(tdev.init_state(dg, cap, head_capacity=None), dg,
+                        ids, seeds[t])
+        st, _, _ = _pod_run(solo_step, st, N_TO_SCORE, targets[t], t_pops[t])
+        check(_same_result(_campaign_result(multi.campaign_state(states, t)),
+                           _campaign_result(st)),
+              f"15d: campaign {t} differs from its solo pod run")
+    total = int(states.n_scored.sum())
+    print(f"[15d pod panel] {POD_T} Tanimoto campaigns, batch {POD_BATCH}, "
+          f"{POD_D} shards: {total:,} scored in {steps} steps, {dt:.2f} s "
+          f"({total / dt:,.0f} scored/s aggregate, {dt / steps * 1e3:.3f} "
+          f"ms/step); every campaign equals its solo pod run", flush=True)
+
+
+def _pod_search(dev, ctx: dict, mesh, sg) -> dict:
+    """15e: the sharded searches and brute force against one card's."""
+    from rad_tpu_torch.parallel import sharded as sh
+    from rad_tpu_torch.search.knn import search_device
+    graph = ctx["graph"]
+    rng = np.random.default_rng(15)
+    q = np.asarray(graph.packed)[rng.choice(N, POD_QUERIES, replace=False)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d1, i1 = sh.make_sharded_search(sg, mesh, 10, POD_EF, POD_QUERIES)(q)
+    torch.cuda.synchronize()
+    t_1d = time.perf_counter() - t0
+    dr, ir = search_device(graph, q, k=10, expansion_search=POD_EF,
+                           expand_width=1, device=dev)
+    check(torch.equal(d1, dr) and torch.equal(i1, ir), "15e: the 1-D "
+          "sharded search differs from search_device")
+    m2 = _pod_mesh(dev, 4, (2, 2), ("data", "graph"))
+    sg2 = sh.shard_graph(graph, m2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d2, i2 = sh.make_sharded_search_2d(sg2, m2, 10, POD_EF, POD_QUERIES)(q)
+    torch.cuda.synchronize()
+    t_2d = time.perf_counter() - t0
+    dr2, ir2 = search_device(graph, q, k=10, expansion_search=POD_EF,
+                             expand_width=1, chunk_size=POD_QUERIES // 2,
+                             device=dev)
+    check(torch.equal(d2, dr2) and torch.equal(i2, ir2), "15e: the 2-D "
+          "sharded search differs from search_device")
+    del sg2
+    _reset_counts()
+    qb = to_torch_packed(q[:TRUTH_SAMPLE], dev)
+    db, ib = sh.sharded_bruteforce_topk(sg, q[:TRUTH_SAMPLE], 10, mesh)
+    launches = _counts("tanimoto_matrix", "tanimoto_bucketmin")
+    dp, ip = bruteforce_topk(qb, ctx["packed"], 10)
+    check(torch.equal(db, dp) and torch.equal(ib, ip), "15e: "
+          "sharded_bruteforce_topk differs from bruteforce_topk")
+    check(launches["tanimoto_matrix"] > 0, "15e: the matrix kernel never "
+          "launched in the sharded brute force")
+    print(f"[15e pod search] {POD_QUERIES} member queries, ef {POD_EF}: 1-D "
+          f"{t_1d:.2f} s, (2, 2) {t_2d:.2f} s, ids and distances equal "
+          f"search_device's; sharded_bruteforce_topk on {TRUTH_SAMPLE} "
+          f"queries equal bruteforce_topk's (launches {launches})",
+          flush=True)
+    return launches
+
+
+def _stream_rows(sizes: list, m: int, seed: int):
+    """Host producers of a bench_scale-shaped random graph (its graph
+    rule, in numpy) and random 1024-bit rows, seeded by the row range."""
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    m0 = 2 * m
+
+    def adj(start, stop):
+        rng = np.random.default_rng([seed, start])
+        rows = np.arange(start, stop)
+        lev = np.searchsorted(offsets, rows, side="right") - 1
+        nl = np.asarray(sizes)[lev][:, None]
+        ids = rng.integers(0, 1 << 31, (stop - start, m0)) % nl
+        node = (rows - offsets[lev])[:, None]
+        ids = np.where(ids == node, (ids + 1) % nl, ids)
+        cap = np.where(lev == 0, m0, m)[:, None]
+        return np.where((np.arange(m0)[None, :] < cap) & (nl > 1), ids,
+                        -1).astype(np.int32)
+
+    def fps(start, stop):
+        rng = np.random.default_rng([seed + 1, start])
+        return rng.integers(0, 1 << 32, (stop - start, 32), dtype=np.uint32)
+
+    return adj, fps
+
+
+def _pod_stream(dev, mesh) -> None:
+    """15f: a 10M-node graph streamed into the shards, the pod step on it."""
+    from rad_tpu_torch.parallel import sharded as sh
+    sizes = bench_scale.hnsw_layer_sizes(STREAM_N, 8)
+    adj, fps = _stream_rows(sizes, 8, seed=0)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sg = sh.shard_graph_streamed(mesh, n_nodes=STREAM_N, layer_sizes=sizes,
+                                 m0=16, make_adj_rows=adj,
+                                 make_packed_rows=fps)
+    torch.cuda.synchronize()
+    t_place = time.perf_counter() - t0
+    dg = sg.device_graph()
+    cap = tdev.auto_frontier_capacity(sg.n_rows)
+    st = tdev.init_state(dg, cap)
+    target = sg.packed[torch.tensor([7], device=dev)][0]
+    tpop = popcount_rows(target[None, :])[0]
+    top = sizes[-1] if sizes[-1] > 1 else sizes[-2]
+    ids = torch.arange(top, dtype=torch.int32, device=dev)
+    rows = sg.packed[ids.long()]
+    st = tdev.prime(st, dg, ids, tanimoto_rows_to_target(
+        rows, popcount_rows(rows), target, tpop))
+    st, steps, dt = _pod_run(sh.make_sharded_step(sg, mesh, POD_BATCH), st,
+                             STREAM_BUDGET, target, tpop)
+    peak = torch.cuda.max_memory_allocated() - base
+    held = sg.nbytes() + sum(
+        t.numel() * t.element_size() for t in vars(st).values())
+    log = tdev.read_order_log(st)
+    check(int(st.n_scored) >= STREAM_BUDGET and len(np.unique(log))
+          == len(log), "15f: short run or a duplicate in the order log")
+    check(peak <= (1 + PEAK_TOL) * held, f"15f: peak {peak:,} bytes is not "
+          f"within {PEAK_TOL:.0%} of the {held:,} bytes of its tensors")
+    print(f"[15f pod stream] {STREAM_N:,} nodes, layers {sizes}, streamed "
+          f"into {POD_D} shards in {t_place:.1f} s; pod step batch "
+          f"{POD_BATCH}: {int(st.n_scored):,} scored in {steps} steps, "
+          f"{dt:.2f} s ({int(st.n_scored) / dt:,.0f} scored/s, "
+          f"{dt / steps * 1e3:.3f} ms/step); peak {peak / 2**30:.3f} GiB "
+          f"over the {held / 2**30:.3f} GiB of graph and state", flush=True)
+
+
+def _pod_multihost(dev, ctx: dict, ctx15: dict) -> None:
+    """15g: initialize_multihost at world size 1 over NCCL, then one
+    sharded step on the global mesh: 15c's state after one step."""
+    import torch.distributed as dist
+
+    from rad_tpu_torch.parallel import sharded as sh
+    from rad_tpu_torch.parallel.multihost import (global_mesh,
+                                                  initialize_multihost)
+    initialize_multihost(f"127.0.0.1:{_free_port()}", num_processes=1,
+                         process_id=0)
+    try:
+        check(dist.get_backend() == "nccl", "15g: the group is not NCCL")
+        mesh = global_mesh()
+        sg = sh.shard_graph(ctx["graph"], mesh)
+        dg = sg.device_graph()
+        st = tdev.prime(tdev.init_state(dg, ctx15["cap"], head_capacity=None),
+                        dg, ctx15["seeds"], ctx15["seed_scores"])
+        st = sh.make_sharded_step(sg, mesh, POD_BATCH)(
+            st, ctx15["target"], ctx15["tpop"])
+        got = tdev.state_to_reference_arrays(st)
+        want = ctx15["one_step"]
+        check(all(np.array_equal(got[k], want[k]) for k in want),
+              "15g: the NCCL mesh's step differs from 15c's")
+        print(f"[15g multihost] NCCL world size {dist.get_world_size()}, "
+              f"global mesh {mesh.shape}: one sharded step equals 15c's "
+              f"state", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_pod(dev, ctx: dict) -> dict:
+    """15: the multi-device layer, four shards on the one card; returns
+    the launches of the two Tanimoto kernels on its paths."""
+    t0 = time.perf_counter()
+    mesh = _pod_mesh(dev, POD_D)
+    launches = _pod_build(dev, ctx, mesh)
+    _pod_host(ctx, mesh)
+    ctx15 = _pod_steps(dev, ctx, mesh)
+    sg = ctx15.pop("sg")
+    _pod_multi(dev, ctx, mesh, sg)
+    for k, v in _pod_search(dev, ctx, mesh, sg).items():
+        launches[k] += v
+    del sg
+    _pod_stream(dev, mesh)
+    _pod_multihost(dev, ctx, ctx15)
+    print(f"[15 pod] phase 15 in {time.perf_counter() - t0:.1f} s; launches "
+          f"of the Tanimoto kernels on its paths {launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3130,6 +3612,7 @@ def main() -> int:
         phase_sweeps(dev, ctx10)
         del ctx10
         phase_scale(dev)
+        pod_launches = phase_pod(dev, context)
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3139,7 +3622,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=k["source"],
              replaces=k["replaces"], launches=launches[name],
-             **timings[name])
+             pod_launches=pod_launches.get(name, 0), **timings[name])
         for name, k in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

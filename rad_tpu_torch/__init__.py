@@ -6,7 +6,8 @@ Tanimoto math, the exact all-pairs HNSW builder (and the numpy host
 builder), ``.npz`` graph storage, the beam search, the score-guided
 best-first traversal behind ``HNSWIndex`` / ``RADTraverser`` (the device
 engine, and the host engine of the distributed and remote deployments),
-the HNSW services and the HTTP index server. Module paths and public
+the HNSW services and the HTTP index server, and the graph-sharded pod
+engine, search and build over a device mesh (:mod:`rad_tpu_torch.parallel`). Module paths and public
 names mirror ``rad_tpu`` so each piece has an obvious counterpart. This
 package imports ``torch``, numpy and the standard library only — never
 ``jax`` and never ``rad_tpu`` (importing any ``rad_tpu`` module loads jax
@@ -34,6 +35,7 @@ __all__ = [
     "create_local_traverser",
     "create_distributed_traverser",
     "create_remote_traverser",
+    "create_pod_traverser",
 ]
 
 _LAZY = {
@@ -46,6 +48,8 @@ _LAZY = {
                                      "create_distributed_traverser"),
     "create_remote_traverser": ("rad_tpu_torch.api.factories",
                                 "create_remote_traverser"),
+    "create_pod_traverser": ("rad_tpu_torch.api.factories",
+                             "create_pod_traverser"),
 }
 
 

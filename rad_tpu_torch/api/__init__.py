@@ -3,6 +3,7 @@
 from rad_tpu_torch.api.factories import (
     create_distributed_traverser,
     create_local_traverser,
+    create_pod_traverser,
     create_remote_traverser,
 )
 from rad_tpu_torch.api.index import HNSWIndex
@@ -14,4 +15,5 @@ __all__ = [
     "create_local_traverser",
     "create_distributed_traverser",
     "create_remote_traverser",
+    "create_pod_traverser",
 ]

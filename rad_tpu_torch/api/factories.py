@@ -1,5 +1,4 @@
-"""Traverser factories, as ``rad_tpu.api.factories``' (the pod factory is
-not ported: ROADMAP Queue 1, 'Multi-device')."""
+"""Traverser factories, as ``rad_tpu.api.factories``'."""
 
 from __future__ import annotations
 
@@ -11,6 +10,7 @@ __all__ = [
     "create_local_traverser",
     "create_distributed_traverser",
     "create_remote_traverser",
+    "create_pod_traverser",
 ]
 
 
@@ -67,3 +67,24 @@ def create_remote_traverser(hnsw_service_url: str,
                                          register=False)
     return RADTraverser(hnsw_service=service, scoring_fn=scoring_fn,
                         deployment_mode="remote", **kwargs)
+
+
+def create_pod_traverser(hnsw, scoring_fn: Callable[[str], float],
+                         mesh=None, n_devices: int | None = None,
+                         **kwargs) -> RADTraverser:
+    """The graph split over a device mesh (``mesh``, or ``n_devices``
+    CUDA devices), host scoring pipelined through the sharded
+    expand/integrate halves: :class:`~rad_tpu_torch.parallel.pod.
+    PodTraverser` under the RADTraverser lifecycle. ``hnsw`` is an
+    HNSWIndex or an HNSWGraph."""
+    from rad_tpu_torch.api.index import HNSWIndex
+    from rad_tpu_torch.graph.storage import HNSWGraph
+
+    if isinstance(hnsw, HNSWIndex):
+        hnsw = hnsw.graph
+    if not isinstance(hnsw, HNSWGraph):
+        raise TypeError("pod mode shards a local graph; pass an HNSWIndex "
+                        f"or HNSWGraph, got {type(hnsw)!r}")
+    return RADTraverser(graph=hnsw, scoring_fn=scoring_fn,
+                        deployment_mode="pod", mesh=mesh,
+                        n_devices=n_devices, **kwargs)

@@ -11,7 +11,11 @@ get_molecules()/get_best_molecules() → shutdown()``, as in
   through the HTTP coordination endpoints of :mod:`rad_tpu_torch.server`);
 * ``remote`` — the graph lives behind an HTTP service, scoring stays
   local; the host engine, since adjacency is only reachable over the
-  network.
+  network;
+* ``pod`` (``engine="pod"``) — the graph split by rows over a device mesh
+  (:class:`~rad_tpu_torch.parallel.pod.PodTraverser`: ``mesh=`` or
+  ``n_devices=`` CUDA devices, ``shard_state=``), host scoring pipelined
+  through the sharded expand/integrate halves.
 
 The host engine runs on the host alone: it reads the graph through an
 :class:`~rad_tpu_torch.service.base.HNSWService` and puts nothing on the
@@ -127,7 +131,8 @@ class RADTraverser:
     for the lifecycle and the deployment modes.
 
     ``engine="auto"`` is the device engine for a local deployment over a
-    local graph and the host engine otherwise. The device engine runs on
+    local graph, the pod engine for ``deployment_mode="pod"``, and the
+    host engine otherwise. The device engine runs on
     ``device`` (``None``: the first CUDA device; raises when torch sees
     none); the host engine ignores ``device``.
 
@@ -175,11 +180,8 @@ class RADTraverser:
             # the original rad's "hybrid" mode (local index + external
             # workers) is the distributed engine
             deployment_mode = "distributed"
-        if deployment_mode == "pod" or engine == "pod":
-            raise NotImplementedError(
-                "the pod deployment is not ported (ROADMAP Queue 1, "
-                "'Multi-device')")
-        if deployment_mode not in ("local", "distributed", "remote"):
+        if deployment_mode not in ("local", "distributed", "remote",
+                                   "pod"):
             raise ValueError(f"unknown deployment_mode {deployment_mode!r}")
         self.scoring_fn = scoring_fn
         self.deployment_mode = deployment_mode
@@ -201,15 +203,21 @@ class RADTraverser:
 
         local_graph = getattr(hnsw_service, "graph", None)
         if engine == "auto":
-            engine = ("device" if deployment_mode == "local"
-                      and local_graph is not None else "host")
-        if engine not in ("device", "host"):
+            if deployment_mode == "pod":
+                engine = "pod"
+            else:
+                engine = ("device" if deployment_mode == "local"
+                          and local_graph is not None else "host")
+        if engine not in ("device", "host", "pod"):
             raise ValueError(f"unknown engine {engine!r}")
-        if engine == "device" and local_graph is None:
-            raise ValueError("device engine requires a local graph")
+        if engine in ("device", "pod") and local_graph is None:
+            raise ValueError(f"{engine} engine requires a local graph")
         self.engine = engine
         self.graph = local_graph
 
+        pod_options = {k: kwargs.pop(k) for k in ("mesh", "n_devices",
+                                                  "shard_state")
+                       if k in kwargs and engine == "pod"}
         for k in ("redis_host", "redis_port", "redis_password"):
             if k in kwargs:
                 kwargs.pop(k)
@@ -221,10 +229,23 @@ class RADTraverser:
                 f"unsupported RADTraverser kwargs for engine {engine!r}: "
                 f"{sorted(kwargs)}")
 
-        self._device_engine: Optional[DeviceTraverser] = None
+        self._device_engine = None
         self._coord: Optional[CoordinationService] = None
         self._pool: Optional[WorkerPool] = None
-        if engine == "device":
+        if engine == "pod":
+            # the graph split over a device mesh, host scoring pipelined
+            # through the sharded expand/integrate halves
+            from rad_tpu_torch.parallel.pod import PodTraverser
+            self._device_engine = PodTraverser(
+                local_graph, scoring_fn=scoring_fn,
+                smiles_store=getattr(hnsw_service, "smiles_store", None)
+                or smiles_store,
+                batch_size=batch_size, frontier_capacity=frontier_capacity,
+                log_capacity=log_capacity, buffer_capacity=buffer_capacity,
+                head_capacity=head_capacity, n_score_threads=n_score_threads,
+                order_log_spill=order_log_spill,
+                packed_adjacency=packed_adjacency, **pod_options)
+        elif engine == "device":
             self._device_engine = DeviceTraverser(
                 local_graph, scoring_fn,
                 smiles_store=getattr(hnsw_service, "smiles_store", None)

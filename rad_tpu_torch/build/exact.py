@@ -24,7 +24,8 @@ builds the same graph either way and streams only past 6 GiB of tables.
 The reference's small-layer reduction is ``lax.approx_max_k``, which is an
 exact top-k everywhere but on a TPU; the port computes the exact stable
 top-k. The reference's sharded, chunked, spanned and bucketed forms (and
-its dispatch bounding) are not ported.
+its dispatch bounding) are not ported; the mesh-sharded form is
+:mod:`rad_tpu_torch.build.exact_sharded`.
 """
 
 from __future__ import annotations
@@ -53,11 +54,9 @@ INF = float("inf")
 # arguments of rad_tpu's builder whose forms this package does not carry,
 # with where the ROADMAP lists each
 _NOT_BY_DESIGN = "not ported by design"
-_MULTI_DEVICE = "Queue 1, \"Multi-device\""
 _UNPORTED = {"approx_recall": _NOT_BY_DESIGN,
              "pairs_per_dispatch": _NOT_BY_DESIGN,
-             "use_pallas": _NOT_BY_DESIGN, "interpret": _NOT_BY_DESIGN,
-             "mesh": _MULTI_DEVICE, "mesh_axis": _MULTI_DEVICE}
+             "use_pallas": _NOT_BY_DESIGN, "interpret": _NOT_BY_DESIGN}
 
 
 def _merge_topk(cat_d, cat_i, k: int):
@@ -190,6 +189,37 @@ def _probed_blocks(packed_l, pops_l, n_real: int, k: int, q_block: int,
     seconds of the partition (``"bisection"``) and the probe lists
     (``"probe_tables"``) added.
     """
+    packed_cl, pops_cl, perm_cl, probe_tab = _probed_layout(
+        packed_l, pops_l, k, q_block, csize, probes, probe_sample, seed,
+        packed_host, probe_granularity, probe_width, times)
+    nq = perm_cl.shape[0] // q_block
+    # per-qblock lists index directly; per-cluster lists by q-block // qpc
+    # (nq == C only when csize == q_block, where they agree)
+    sdiv = 1 if probe_tab.shape[0] == nq else csize // q_block
+
+    def blocks():
+        # pads occupy the tail of permuted space: only real q-blocks scan
+        for qi in range(-(-n_real // q_block)):
+            q0 = qi * q_block
+            bd, bpos = _one_qblock_probed(
+                packed_cl, pops_cl, perm_cl, probe_tab[qi // sdiv].tolist(),
+                q0, k, q_block, csize, bucket, bucket_approx)
+            ids = torch.where(bpos >= 0,
+                              perm_cl[torch.clamp(bpos, min=0).long()], -1)
+            yield bd, ids, perm_cl[q0:q0 + q_block]
+
+    return blocks()
+
+
+def _probed_layout(packed_l, pops_l, k: int, q_block: int, csize: int,
+                   probes: int, probe_sample: int, seed: int,
+                   packed_host: np.ndarray, probe_granularity: str = "qblock",
+                   probe_width: int | None = None, times: dict | None = None):
+    """The probed stage's layout of a layer: its balanced partition into
+    ``csize``-row clusters and the probe lists, as ``(packed_cl, pops_cl,
+    perm_cl, probe_tab)``: the cluster-contiguous copy of the layer (pad
+    positions zero), its popcounts, the permutation (``perm_cl[p]`` the
+    layer id at position ``p``, −1 pads) and the probe lists (numpy)."""
     from rad_tpu_torch.build.probe import (bisect_clusters, cluster_probes,
                                            qblock_probes)
 
@@ -229,23 +259,7 @@ def _probed_blocks(packed_l, pops_l, n_real: int, k: int, q_block: int,
     packed_cl = packed_l[src].masked_fill_(pad[:, None], 0)
     pops_cl = pops_l[src].masked_fill_(pad, 0)
     del src
-    nq = perm.size // q_block
-    # per-qblock lists index directly; per-cluster lists by q-block // qpc
-    # (nq == C only when csize == q_block, where they agree)
-    sdiv = 1 if probe_tab.shape[0] == nq else csize // q_block
-
-    def blocks():
-        # pads occupy the tail of permuted space: only real q-blocks scan
-        for qi in range(-(-n_real // q_block)):
-            q0 = qi * q_block
-            bd, bpos = _one_qblock_probed(
-                packed_cl, pops_cl, perm_cl, probe_tab[qi // sdiv].tolist(),
-                q0, k, q_block, csize, bucket, bucket_approx)
-            ids = torch.where(bpos >= 0,
-                              perm_cl[torch.clamp(bpos, min=0).long()], -1)
-            yield bd, ids, perm_cl[q0:q0 + q_block]
-
-    return blocks()
+    return packed_cl, pops_cl, perm_cl, probe_tab
 
 
 def _select_probed(blocks, packed, pops, n_pad: int, k: int, q_block: int,
@@ -389,6 +403,8 @@ def build_hnsw_exact(
     probe_width: int | None = None,
     probe_min_n: int = 2_000_000,
     stream_select: bool | str = "auto",
+    mesh=None,
+    mesh_axis: str = "graph",
     device=None,
     stage_times: dict | None = None,
     **unported,
@@ -423,8 +439,21 @@ def build_hnsw_exact(
     stream selection into the scan (:func:`_select_probed`), which builds
     the graph of the reference's table path and of its streamed path.
 
+    ``mesh`` (a 1-D :class:`~rad_tpu_torch.parallel.mesh.Mesh` with axis
+    ``mesh_axis``) distributes the build: every layer of at least the
+    mesh's padding unit ``max(q_block, col_block, sel_block, D * q_block,
+    D * sel_block)`` runs its three stages split over the D shards
+    (:mod:`rad_tpu_torch.build.exact_sharded`: q-block and row spans per
+    shard, one all-to-all in the symmetrization), and the graph is the
+    single-device build's, edge for edge. The fingerprints are replicated
+    on each shard's device (one copy per distinct device); smaller layers
+    run on the lead device. The bucket reduction serves the layers it
+    serves without a mesh, so the mesh's larger padding unit changes no
+    candidate.
+
     ``device`` is where the fingerprints are uploaded and every stage
-    runs: the CUDA kernels on a CUDA device, their plain twins on the CPU.
+    runs: the CUDA kernels on a CUDA device, their plain twins on the CPU
+    (with a ``mesh``, its lead device unless ``device`` is given).
     ``stage_times``, when given, accumulates seconds per stage under
     ``"candidates"``, ``"selection"`` and ``"symmetrization"``, and, once
     a layer probes, ``"bisection"`` and ``"probe_tables"`` (not part of
@@ -446,6 +475,13 @@ def build_hnsw_exact(
             f"ported; the reference's other forms are {_NOT_BY_DESIGN}")
     if stream_select not in ("auto", True, False):
         raise ValueError(f"stream_select={stream_select!r}")
+    if mesh is not None:
+        if list(getattr(mesh, "shape", {})) != [mesh_axis]:
+            raise ValueError(f"mesh= needs a 1-D Mesh with the axis "
+                             f"{mesh_axis!r} (rad_tpu_torch.parallel."
+                             f"make_mesh), got {mesh!r}")
+        if device is None:
+            device = mesh.lead
     device = resolve_device(device)
     packed = np.ascontiguousarray(packed, dtype=np.uint32)
     n, w = packed.shape
@@ -478,7 +514,12 @@ def build_hnsw_exact(
                         for l in range(max_level + 1))
     pops_np = popcount_rows_np(packed)
 
-    big = max(q_block, col_block, sel_block)
+    big = big_single = max(q_block, col_block, sel_block)
+    if mesh is not None:
+        # sharded layers split into whole q-blocks and selection chunks
+        # per shard; the unit also pads (reductions mask rows >= n_real)
+        d_mesh = mesh.shape[mesh_axis]
+        big = max(big, d_mesh * q_block, d_mesh * sel_block)
     if n >= big:
         n_pad0 = _round_up(n, big)
     elif n > 1:
@@ -510,6 +551,10 @@ def build_hnsw_exact(
     pops_pad = np.concatenate([pops_np, np.zeros(n_pad0 - n, np.int32)])
     dev_packed = torch.from_numpy(packed_pad.view(np.int32)).to(device)
     dev_pops = torch.from_numpy(pops_pad).to(device)
+    if mesh is not None:
+        from rad_tpu_torch.build import exact_sharded as xs
+        rep_packed = xs.replicate(dev_packed, mesh)
+        rep_pops = xs.replicate(dev_pops, mesh)
 
     neighbors = []
     for l in range(max_level + 1):
@@ -522,7 +567,9 @@ def build_hnsw_exact(
         k = min(candidates, n_pad)
         packed_l = dev_packed[:n_pad]
         pops_l = dev_pops[:n_pad]
-        bkt = block_bucket if block_bucket and n_l >= big else None
+        # the bucket reduction's layers do not depend on the mesh
+        bkt = block_bucket if block_bucket and n_l >= big_single else None
+        sharded = mesh is not None and n_l >= big
         csz = probe_csize or cb
         use_probe = (probes is not None
                      and n_l >= probe_min_n
@@ -540,7 +587,16 @@ def build_hnsw_exact(
         t0 = time.perf_counter()
         other0 = _other_stage_seconds(times)
         sel0 = times["selection"]
-        if use_probe:
+        if sharded:
+            sel, sel_d = _sharded_stages(
+                xs, mesh, mesh_axis, [t[:n_pad] for t in rep_packed],
+                [t[:n_pad] for t in rep_pops], packed_l, pops_l, n_l, n_pad,
+                k, qb, cb, sb, bkt, bucket_approx, min(m, cap), heuristic_k,
+                times, stage_times,
+                (csz, probes, probe_sample, seed * 1_000_003 + 7919 * (l + 1),
+                 packed[:n_l], probe_granularity, probe_width)
+                if use_probe else None)
+        elif use_probe:
             # selection streams into the scan and times itself
             sel, sel_d = _select_probed(
                 _probed_blocks(packed_l, pops_l, n_l, k, qb, csz, bkt,
@@ -562,7 +618,11 @@ def build_hnsw_exact(
             times["selection"] += time.perf_counter() - t_sel
         _sync_if(stage_times, device)
         t1 = time.perf_counter()
-        rows = _symmetrize(sel, sel_d, n_l, cap)
+        if sharded:
+            rows = xs.symmetrize_sharded(sel, sel_d, n_l, cap, mesh,
+                                         mesh_axis).full()
+        else:
+            rows = _symmetrize(sel, sel_d, n_l, cap)
         neighbors.append(rows[:n_l].cpu().numpy())
         t2 = time.perf_counter()
         # the partition, the probe lists and the selection count as stages
@@ -570,11 +630,12 @@ def build_hnsw_exact(
         cand_s = t1 - t0 - (_other_stage_seconds(times) - other0)
         times["candidates"] += cand_s
         times["symmetrization"] += t2 - t1
-        logger.info("layer %d (n=%d, %s%s): %.2fs candidates, %.2fs "
+        logger.info("layer %d (n=%d, %s%s%s): %.2fs candidates, %.2fs "
                     "selection, %.2fs symmetrization", l, n_l,
                     f"bucket {bkt}" if bkt else "matrix",
-                    f", {probes} probes of {csz}, selection streamed"
-                    if use_probe else "",
+                    f", {probes} probes of {csz}" if use_probe else "",
+                    f", {mesh.shape[mesh_axis]} shards" if sharded
+                    else ", selection streamed" if use_probe else "",
                     cand_s, times["selection"] - sel0, t2 - t1)
         del sel, sel_d, rows
 
@@ -595,6 +656,42 @@ def build_hnsw_exact(
         ndim=ndim,
         connectivity=m,
     )
+
+
+def _sharded_stages(xs, mesh, axis, rep_packed, rep_pops, packed_l, pops_l,
+                    n_l: int, n_pad: int, k: int, qb: int, cb: int, sb: int,
+                    bkt, approx: bool, m: int, heuristic_k: int, times: dict,
+                    stage_times, probe):
+    """A sharded layer's candidates (exact, or probed when ``probe`` holds
+    the probed stage's settings) and selection, timed into ``times``
+    (the candidate stage's seconds are counted by the caller)."""
+    if probe is None:
+        cand_d, cand_id = xs.allpairs_topk_sharded(
+            rep_packed, rep_pops, n_l, k, qb, cb, bkt, mesh, axis, approx)
+    else:
+        csz, probes, probe_sample, seed, host, granularity, width = probe
+        layout = _probed_layout(packed_l, pops_l, k, qb, csz, probes,
+                                probe_sample, seed, host, granularity,
+                                width, times)
+        cand_d, cand_id = xs.probed_topk_sharded(
+            *(xs.replicate(t, mesh) for t in layout[:3]), layout[3], n_pad,
+            k, qb, csz, bkt, mesh, axis, approx, n_real=n_l)
+        del layout
+    _sync_mesh(stage_times, mesh)
+    t0 = time.perf_counter()
+    sel, sel_d = xs.select_layer_sharded(rep_packed, rep_pops, cand_d,
+                                         cand_id, n_l, m, heuristic_k, sb,
+                                         mesh, axis)
+    _sync_mesh(stage_times, mesh)
+    times["selection"] += time.perf_counter() - t0
+    return sel, sel_d
+
+
+def _sync_mesh(stage_times, mesh) -> None:
+    """Wait for every card of the mesh when stage times are taken."""
+    if stage_times is not None:
+        for d in {str(d): d for d in mesh.devices.flat}.values():
+            _sync_if(stage_times, d)
 
 
 def _other_stage_seconds(times: dict) -> float:

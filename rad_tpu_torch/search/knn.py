@@ -65,14 +65,18 @@ def _first_min(d):
 
 def _search_batch(packed, pops, dg, queries, k: int, ef: int,
                   expand_width: int, visited_capacity: int | None,
-                  prefix_keep: int = 0, prefix=None, prefix_pops=None):
+                  prefix_keep: int = 0, prefix=None, prefix_pops=None,
+                  n_nodes: int | None = None):
     """One batch of the search → ``(dists [B, k], node_ids [B, k])``.
 
     ``prefix``/``prefix_pops`` (the compact ``[N, pw]`` prefix copy and
     its popcounts) switch on the screen, which keeps ``prefix_keep`` of
-    each wave."""
+    each wave. ``packed``/``pops`` and ``dg.adj`` are read only by
+    indexing with id tensors, so row-sharded arrays
+    (:class:`~rad_tpu_torch.parallel.collectives.ShardedRows`, whose
+    padded length is not the node count: pass ``n_nodes``) serve too."""
     dev = packed.device
-    n = packed.shape[0]
+    n = packed.shape[0] if n_nodes is None else n_nodes
     b = queries.shape[0]
     m0 = dg.m0
     e = min(expand_width, ef)

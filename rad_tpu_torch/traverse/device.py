@@ -428,9 +428,13 @@ def _refill_two_level(state: TraversalState) -> None:
 
 
 def expand(state: TraversalState, dg: DeviceGraph, batch: int,
-           ops: DenseStateOps = DENSE_OPS, fused_candidates: bool = False):
+           gather_adj=None, ops: DenseStateOps = DENSE_OPS,
+           fused_candidates: bool = False):
     """Pop the ``batch`` best frontier entries and gather their neighbors.
 
+    ``gather_adj(rows) -> [B, M0]`` int32 overrides the adjacency row
+    gather: the hook the graph-sharded pod engine uses to fetch rows from
+    whichever shard owns them (:mod:`rad_tpu_torch.parallel.sharded`).
     ``fused_candidates=True`` computes ``to_score`` with the K1 kernel
     (:func:`~rad_tpu_torch.traverse.candidate_ops.candidate_filter`; its
     plain twin for a CPU state) instead of the chain below — same result.
@@ -476,7 +480,9 @@ def expand(state: TraversalState, dg: DeviceGraph, batch: int,
     level = _level_of_row(dg, pop_row)
     node = pop_row - dg.offsets[level.long()]
     safe_row = torch.where(valid, pop_row, 0)
-    cand = adjacency_rows(dg, safe_row).masked_fill(~valid[:, None], -1)
+    adj_rows = (adjacency_rows(dg, safe_row) if gather_adj is None
+                else gather_adj(safe_row))
+    cand = adj_rows.masked_fill(~valid[:, None], -1)
 
     n = dg.n_nodes
     cand_flat = cand.reshape(-1)

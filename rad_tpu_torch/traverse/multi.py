@@ -203,9 +203,11 @@ def _refill_(st: TraversalState, lanes: torch.Tensor) -> None:
 
 
 def _expand_(st: TraversalState, dg: DeviceGraph, lanes: torch.Tensor,
-             batch: int) -> dict:
+             batch: int, gather_adj=None) -> dict:
     """:func:`~rad_tpu_torch.traverse.device.expand` for the campaigns
-    ``lanes`` [A]: every output has a leading A axis."""
+    ``lanes`` [A]: every output has a leading A axis. ``gather_adj(rows
+    [A, B]) -> [A, B, M0]`` overrides the adjacency row gather, as the
+    solo step's hook does."""
     b = batch
     c = st.f_score.shape[1]
     p = st.f_buf_score.shape[1] - 1
@@ -237,7 +239,9 @@ def _expand_(st: TraversalState, dg: DeviceGraph, lanes: torch.Tensor,
     level = dev._level_of_row(dg, pop_row)
     node = pop_row - dg.offsets[level.long()]
     safe_row = torch.where(valid, pop_row, 0)
-    cand = adjacency_rows(dg, safe_row).masked_fill(~valid[:, :, None], -1)
+    adj_rows = (adjacency_rows(dg, safe_row) if gather_adj is None
+                else gather_adj(safe_row))
+    cand = adj_rows.masked_fill(~valid[:, :, None], -1)
 
     n = dg.n_nodes
     cand_flat = cand.reshape(cand.shape[0], -1)
@@ -400,10 +404,11 @@ def _decide(states: TraversalState, budgets: np.ndarray, batch: int,
 
 
 def _step_(states: TraversalState, dg: DeviceGraph, lanes: torch.Tensor,
-           batch: int, score, merge: bool, refill: bool) -> None:
+           batch: int, score, merge: bool, refill: bool,
+           gather_adj=None) -> None:
     if refill:
         _refill_(states, lanes)
-    out = _expand_(states, dg, lanes, batch)
+    out = _expand_(states, dg, lanes, batch, gather_adj)
     _integrate_(states, dg, lanes, out, score(lanes, out["to_score"]),
                 merge)
 
@@ -413,18 +418,20 @@ def _lanes(active: np.ndarray, device) -> torch.Tensor:
 
 
 def multi_step(states: TraversalState, dg: DeviceGraph, budgets, batch: int,
-               score) -> TraversalState:
+               score, gather_adj=None) -> TraversalState:
     """One multi-campaign step: the lifted refill and commit decisions
     around expand → score → integrate over the active campaigns; finished
     campaigns are untouched. ``score(lanes [A], to_score [A, K]) -> [A, K]``
     f32 scores the step's ids, campaign ``lanes[a]`` scoring row ``a``
-    (+inf on the -1 padding)."""
+    (+inf on the -1 padding). ``gather_adj(rows [A, B]) -> [A, B, M0]``
+    overrides the adjacency row gather (the graph-sharded panel step
+    gathers its rows from their shards here)."""
     budgets = np.broadcast_to(np.asarray(budgets, np.int64),
                               states.n_scored.shape)
     active, merge, refill = _decide(states, budgets, batch, dg.m0)
     if active.any():
         _step_(states, dg, _lanes(active, states.n_scored.device), batch,
-               score, merge, refill)
+               score, merge, refill, gather_adj)
     return states
 
 
@@ -460,6 +467,17 @@ def fused_run_multi(states: TraversalState, dg: DeviceGraph,
     ``packed`` / ``pops`` as in
     :func:`~rad_tpu_torch.traverse.device.fused_run`. ``states`` is
     updated in place and returned."""
+    return _multi_loop(states, dg, n_to_score, batch, max_steps,
+                       _tanimoto_lanes(packed, pops, targets, t_pops))
+
+
+def _tanimoto_lanes(packed, pops, targets: torch.Tensor,
+                    t_pops: torch.Tensor):
+    """The multi step's ``score`` hook for Tanimoto distance to
+    ``targets[t]``: row ``a`` of ``to_score`` is scored against campaign
+    ``lanes[a]``'s target. ``packed`` / ``pops`` are anything indexed by a
+    tensor of ids (the graph-sharded panel step passes its owned
+    gathers)."""
     def score(lanes, ts):
         ok = ts >= 0
         safe = torch.where(ok, ts, 0).long()
@@ -468,7 +486,7 @@ def fused_run_multi(states: TraversalState, dg: DeviceGraph,
         d = 1.0 - similarity_from_counts(inter, union)
         return torch.where(ok, d, INF)
 
-    return _multi_loop(states, dg, n_to_score, batch, max_steps, score)
+    return score
 
 
 def fused_run_multi_tables(states: TraversalState, dg: DeviceGraph,

@@ -280,8 +280,10 @@ def test_entry_points_default_to_the_card(library, monkeypatch):
 
 def test_port_never_loads_jax():
     """A fresh interpreter runs a tiny quick start on the port, imports
-    its benchmark and command-line entry points, fingerprints 20 library
-    molecules with its Morgan copy, runs a 30-scored
+    its benchmark and command-line entry points and its multi-device
+    layer, runs a 30-scored pod traversal on a two-shard CPU mesh,
+    fingerprints 20 library molecules with its Morgan copy, runs a
+    30-scored
     distributed traversal and one neighbor fetch over loopback HTTP, and
     must not have imported jax, rad_tpu, the repo's benchmarks or
     examples, or requests."""
@@ -313,6 +315,18 @@ def test_port_never_loads_jax():
         import rad_tpu_torch.scripts.start_hnsw_server
         import rad_tpu_torch.bench_recall, rad_tpu_torch.bench_probe_sweep
         import rad_tpu_torch.bench_scale
+        import rad_tpu_torch.parallel, rad_tpu_torch.parallel.multihost
+        import rad_tpu_torch.build.exact_sharded
+        from rad_tpu_torch import create_pod_traverser
+        from rad_tpu_torch.parallel import make_mesh
+        import torch
+        p = create_pod_traverser(index, lambda s: float(s[1:]) % 7.5,
+                                 mesh=make_mesh(2, devices=["cpu"] * 2),
+                                 smiles_store=store, n_score_threads=1)
+        p.prime()
+        p.traverse(n_to_score=30)
+        assert len(p.get_best_molecules(5)) == 5
+        p.shutdown()
         from rad_tpu_torch.chem import morgan_fingerprints_packed
         from rad_tpu_torch.chem.library import make_smiles_library
         assert morgan_fingerprints_packed(

@@ -108,7 +108,17 @@ def test_unported_forms_raise(fps):
                                      use_pallas=True, interpret=True, **kw)
     port = build_hnsw_exact(fps, stream_select=True, device="cpu", **kw)
     _assert_same_graph(ref, port, "stream_select=True")
-    with pytest.raises(NotImplementedError, match="Multi-device"):
+    # the mesh form is ported: a mesh build equals the single-device
+    # build (tests/test_torch_build_sharded.py holds more cases), and a
+    # malformed mesh= still raises
+    from rad_tpu_torch.parallel import make_mesh
+    mesh_kw = dict(connectivity=8, seed=1, q_block=128, col_block=128,
+                   sel_block=128)
+    _assert_same_graph(
+        build_hnsw_exact(fps, device="cpu", **mesh_kw),
+        build_hnsw_exact(fps, mesh=make_mesh(2, devices=["cpu"] * 2),
+                         **mesh_kw), "mesh=")
+    with pytest.raises(ValueError, match="axis"):
         build_hnsw_exact(fps[:64], mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported by design"):
         build_hnsw_exact(fps[:64], use_pallas=True, device="cpu")

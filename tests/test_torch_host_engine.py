@@ -463,8 +463,18 @@ def test_deployment_modes_and_engine_rules(graphs):
     t = RADTraverser(LocalHNSWService(port), fn, engine="host")
     assert (t.engine, t.deployment_mode) == ("host", "local")
     t.shutdown()
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        RADTraverser(graph=port, scoring_fn=fn, deployment_mode="pod")
+    # the pod mode runs the graph-sharded engine on the given mesh, and
+    # without a mesh it needs CUDA devices: no CPU fallback
+    import torch
+    from rad_tpu_torch.parallel import PodTraverser, make_mesh
+    t = RADTraverser(graph=port, scoring_fn=fn, deployment_mode="pod",
+                     mesh=make_mesh(2, devices=["cpu"] * 2))
+    assert (t.engine, t.deployment_mode) == ("pod", "pod")
+    assert isinstance(t._device_engine, PodTraverser)
+    t.shutdown()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            RADTraverser(graph=port, scoring_fn=fn, deployment_mode="pod")
     with pytest.raises(ValueError, match="deployment_mode"):
         RADTraverser(graph=port, scoring_fn=fn, deployment_mode="cloud")
     with pytest.raises(ValueError, match="engine"):

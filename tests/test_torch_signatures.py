@@ -22,11 +22,13 @@ import torch
 
 SUBMODULES = [
     "api.factories", "api.index", "api.traverser",
-    "build.device", "build.exact", "build.incremental", "build.partition",
-    "build.probe", "build.reference",
+    "build.device", "build.exact", "build.exact_sharded", "build.incremental",
+    "build.partition", "build.probe", "build.reference",
     "chem.library", "chem.morgan",
     "fp.kernels", "fp.pack", "fp.tanimoto",
     "graph.adjpack", "graph.storage",
+    "parallel.mesh", "parallel.multihost", "parallel.pod",
+    "parallel.sharded",
     "search.knn", "search.visited",
     "server.http_server",
     "service.base", "service.local", "service.registry", "service.remote",
@@ -36,19 +38,16 @@ SUBMODULES = [
     "traverse.structures", "traverse.workers",
     "utils.profiling",
 ]
-PACKAGES = ["api", "build", "chem", "fp", "graph", "search", "server", "service",
-            "store", "traverse", "utils"]
+PACKAGES = ["api", "build", "chem", "fp", "graph", "parallel", "search",
+            "server", "service", "store", "traverse", "utils"]
 
-Q1_MULTI = "ROADMAP Queue 1, 'Multi-device'"
 Q1_NATIVE = "ROADMAP Queue 1, 'The native host path'"
 NOT_PORTED = "not ported by design (ROADMAP, 'What not to carry over')"
 LAYOUT = "an internal laid out differently"
 
 # "module:name" -> (the diff it must produce, why)
 ALLOWED = {
-    # ---- names the port does not have yet
-    "api:create_pod_traverser": ("missing", Q1_MULTI),
-    "api.factories:create_pod_traverser": ("missing", Q1_MULTI),
+    # ---- names the port does not have
     **{f"fp:{name}": ("missing", LAYOUT + ": the kernel wrappers are "
                       "rad_tpu_torch.fp.kernels' tanimoto_matrix, "
                       "tanimoto_nn, tanimoto_bucketmin and "
@@ -67,6 +66,9 @@ ALLOWED = {
     "graph.storage:HNSWGraph.tree_unflatten": ("missing", NOT_PORTED),
     "traverse.device:DeviceGraph.tree_flatten": ("missing", NOT_PORTED),
     "traverse.device:DeviceGraph.tree_unflatten": ("missing", NOT_PORTED),
+    "parallel.sharded:ShardedGraph.tree_flatten": ("missing", NOT_PORTED),
+    "parallel.sharded:ShardedGraph.tree_unflatten": ("missing",
+                                                     NOT_PORTED),
     "traverse.device:TraversalState.tree_flatten": ("missing", NOT_PORTED),
     "traverse.device:TraversalState.tree_unflatten": ("missing",
                                                       NOT_PORTED),
@@ -88,10 +90,30 @@ ALLOWED = {
         "where the reference pops them from **kwargs"),
     "build.exact:build_hnsw_exact": (
         "missing use_pallas, approx_recall, pairs_per_dispatch, "
-        "interpret, mesh, mesh_axis; extra stage_times, unported",
-        NOT_PORTED + " (the Pallas knobs, the dispatch bound) and "
-        + Q1_MULTI + " (mesh, mesh_axis), all refused through **unported;"
-        " stage_times is the port's per-stage timer"),
+        "interpret; extra stage_times, unported",
+        NOT_PORTED + " (the Pallas knobs, the dispatch bound), refused "
+        "through **unported; stage_times is the port's per-stage timer"),
+    "build.exact_sharded:allpairs_topk_sharded": (
+        "missing use_pallas, approx_recall, interpret, bucket_opts; extra "
+        "pops, approx", NOT_PORTED + " (the Pallas knobs); " + LAYOUT
+        + ": the popcounts come in beside the rows, as in the port's "
+        "single-device stage, and approx is its bucket_approx"),
+    "build.exact_sharded:probed_topk_sharded": (
+        "missing scan_cols, use_pallas, approx_recall, interpret, "
+        "bucket_opts; extra pops_cl, probe_tab, n_pad, approx, n_real",
+        NOT_PORTED + " (the Pallas knobs); " + LAYOUT + ": the probe lists "
+        "stay on the host (probe_tab) and the results are scattered to "
+        "their rows' shards here (n_pad rows, n_real real)"),
+    "build.exact_sharded:select_layer_sharded": (
+        "missing mxu_pairs", NOT_PORTED + ": the port's selection has one "
+        "pair-distance form"),
+    "parallel.multihost:global_mesh": (
+        "extra local_devices", LAYOUT + ": torch has no virtual CPU "
+        "devices, so a CPU process names its own (default: its CUDA "
+        "cards)"),
+    "parallel.sharded:ShardedGraph.__init__": (
+        "missing adj_group", NOT_PORTED + ": the port's packed adjacency "
+        "is always group 1"),
     "build.partition:build_hnsw_partitioned": (
         "extra stage_times", "stage_times is the port's per-stage timer, "
         "as build_hnsw_exact's"),
@@ -113,8 +135,7 @@ ALLOWED = {
         NOT_PORTED + " (adj_group); offsets_host is the host copy of the "
         "layer offsets, " + LAYOUT),
     "traverse.device:expand": (
-        "missing gather_adj, refill",
-        Q1_MULTI + " brings gather_adj (the pod engine's row gather); "
+        "missing refill",
         "refill lifts a decision out of a vmapped step, " + LAYOUT
         + " (the port's multi engine decides its refills itself)"),
     "traverse.device:integrate": (
@@ -124,8 +145,12 @@ ALLOWED = {
         "extra fused_candidates",
         LAYOUT + ": the reference takes K1/K2 through its state ops"),
     "traverse.multi:multi_step": (
-        "missing vm_expand_score, integrate_extra; extra score",
-        Q1_MULTI + ": the sharded panel step brings the two hooks"),
+        "missing vm_expand_score, integrate_extra; extra score, gather_adj",
+        LAYOUT + ": the hooks take the lane form: score(lanes, to_score) "
+        "scores the active lanes where the reference vmaps an expand and "
+        "score, and gather_adj is the adjacency hook the graph-sharded "
+        "panel step needs (its state is replicated, so it forwards no "
+        "state ops to integrate)"),
 }
 
 
