@@ -134,8 +134,8 @@ Phases, one status line each (plus detail lines):
    ``expansion_add`` 128), searched on the card and by ``search_hnsw`` on
    the host over 200 held-out rows: mean top-5 distances within 0.02,
    recall@10 at ef 128 at least 0.85 against brute force; (d)
-   ``smiles_fingerprints`` of 10,000 of phase 4's store strings, twice,
-   equal;
+   ``smiles_fingerprints`` of 10,000 of phase 4's store strings (the
+   native fingerprinter's first use), twice, equal;
 10. the other builders on 110,000 molecules x 1024 bits of the mutation-
    tree library (seed 0), M = 16, the size of
    ``benchmarks/bench_build_device.py`` and ``bench_partition.py``: (a)
@@ -238,10 +238,29 @@ Phases, one status line each (plus detail lines):
    step to 100,000 scored, the peak of allocated memory within 15 % of
    the bytes of the graph and the state; (g) ``initialize_multihost`` at
    world size 1 over NCCL (a localhost TCP store), ``global_mesh`` and
-   one sharded step: 15c's state after one step.
+   one sharded step: 15c's state after one step;
+16. the native host path (``rad_tpu_torch.native``, C++ compiled by
+   ``g++`` at its first use, 9d's batch) on the card's host: (a) the
+   library available, with the ISA flag that compiled it, its seconds and
+   path; (b) a single-threaded native build of 9c's 5,000 rows at 9c's
+   settings: edge-identical to 9c's numpy graph, both seconds; (c)
+   ``HNSWIndex.build(backend="native")`` on every host core over phase
+   10's 100,000 rows (expansion_add 200): seconds and rows/s, the graph
+   valid; 500 member queries, their truth by the card's blocked brute
+   force (the matrix kernel's launches counted, its first 50 queries
+   equal to the plain ``bruteforce_topk``'s): the
+   card's search at ef 128 recall@10 >= 0.85 and ``search(backend=
+   "native")`` >= 0.80, each in queries/s; (d) 11a's 20,000 strings
+   through ``smiles_fingerprints_native``, the Python path one by one and
+   ``smiles_fingerprints`` (and the first 2,000 through
+   ``smiles_fingerprint``, ms a string): array-equal, each timed; (e)
+   ``build_hnsw_partitioned(builder="auto")`` of (c)'s rows in 4 shards:
+   the native builder taken (no bucket launch), recall@10 at ef 64 >= 0.9
+   against (c)'s truth, seconds per stage.
 
 The ``kernels`` line's ``launches`` are each kernel's counts on its own
-single-card path (the main path, or the later path that runs it); its
+single-card path (the main path, or the later path that runs it; the
+matrix kernel's also hold 16c's brute force); its
 ``pod_launches`` are the counts on phase 15's paths (the sharded build
 and the sharded brute force), 0 for a kernel those paths do not run.
 
@@ -290,8 +309,8 @@ from rad_tpu_torch import (HNSWIndex, RADTraverser, _cuda, bench,
                            bench_scalar_probe, bench_scale,
                            create_distributed_traverser,
                            create_local_traverser, create_remote_traverser,
-                           profiling)
-from rad_tpu_torch.build import exact, probe
+                           native, profiling)
+from rad_tpu_torch.build import exact, partition, probe
 from rad_tpu_torch.build.device import build_hnsw_device
 from rad_tpu_torch.build.exact import build_hnsw_exact
 from rad_tpu_torch.build.incremental import insert_into_graph
@@ -302,7 +321,8 @@ from rad_tpu_torch.chem.library import make_smiles_library
 from rad_tpu_torch.graph.storage import (ArangeKeys, DerivedLevels,
                                          HNSWGraph, NpzStreamWriter)
 from rad_tpu_torch.fp import kernels
-from rad_tpu_torch.fp.pack import (popcount_rows, random_fingerprints,
+from rad_tpu_torch.fp.pack import (_hash_fingerprint_bits, pack_fingerprints,
+                                   popcount_rows, random_fingerprints,
                                    smiles_fingerprint, smiles_fingerprints,
                                    to_torch_packed)
 from rad_tpu_torch.fp.tanimoto import (bruteforce_topk,
@@ -414,8 +434,9 @@ BUILD_N = 100_000
 INSERT_N = 10_000
 PARITY_N, PARITY_INSERT, PARITY_BATCH = 2048, 256, 256
 PART_PARITY_N = 4096
-# phase 11: store strings through the index CLI (smiles_fingerprints is
-# pure Python, ~1 ms a string), the host engine's budget (1 % of phase 4's
+# phase 11: store strings through the index CLI (smiles_fingerprints hands
+# them to the native fingerprinter; the Python path takes ~1 ms a string),
+# the host engine's budget (1 % of phase 4's
 # graph), the device engine's at batch 1, and the scores of a worker that
 # joins over HTTP and of a traversal of the CLI's server
 CLI_N = 20_000
@@ -439,6 +460,12 @@ SWEEP_MORGAN_N = 40_000
 SCALE_N, SCALE_BUDGET = 100_000_000, 1_000_000
 SCALE_PARITY_N, SCALE_PARITY_BUDGET = 200_000, 50_000
 PEAK_TOL = 0.15
+# phase 16: member queries of phase 10's library held to the card's brute
+# force, the bars of tests/test_native.py (the card's search on the native
+# graph at ef 128) and of the native search itself, and 10d's bar
+NATIVE_Q = 500
+FP_SINGLE_N = 2_000      # 16d: strings through smiles_fingerprint alone
+NATIVE_RECALL_BAR, NATIVE_SEARCH_BAR, PART_RECALL_BAR = 0.85, 0.80, 0.9
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 NQ, NN = 2048, 1 << 20   # phase 7: the repo's benchmark problem
 PROBE_K, PROBE_N = 8192, 1 << 20   # the scalar-loop probes' problem
@@ -2292,6 +2319,7 @@ def _host_builder(dev, ctx: dict) -> None:
     g = index.build(backend="host")
     t_build = time.perf_counter() - t0
     _check_graph(g)
+    ctx["host_graph"], ctx["host_build_s"] = g, t_build     # for 16b
     d_dev, _ = index.search(q, k=5, expansion_search=64)
     t0 = time.perf_counter()
     d_host, _ = search_hnsw(g, q, k=5, expansion_search=64)
@@ -2511,7 +2539,7 @@ def _partitioned(dev, lib: np.ndarray, ctx: dict) -> None:
           f"{t_cpu:.1f} s)", flush=True)
 
 
-def phase_other_builders(dev) -> None:
+def phase_other_builders(dev) -> np.ndarray:
     """10: the other builders on the library of
     ``benchmarks/bench_build_device.py --library tree`` and
     ``bench_partition.py`` at their default 100,000 rows (1024 bits,
@@ -2532,6 +2560,7 @@ def phase_other_builders(dev) -> None:
     _partitioned(dev, lib, ctx)
     print(f"[10 other builders] {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+    return lib
 
 
 def _scoring32(true_scores):
@@ -3585,6 +3614,157 @@ def phase_pod(dev, ctx: dict) -> dict:
     return launches
 
 
+def _native_library() -> None:
+    """16a: the native library compiled on this host (at its first use,
+    9d's batch of fingerprints)."""
+    t0 = time.perf_counter()
+    ok = native.native_available()
+    check(ok, f"16a: the native library did not build: {native._LIB_ERR}")
+    info = native._INFO
+    how = (f"compiled at first use by g++ "
+           f"{info['isa'] or 'without an ISA flag'} in "
+           f"{info['seconds']:.2f} s" if info["compiled"]
+           else "found on disk")
+    print(f"[16a native library] {how}; available in "
+          f"{time.perf_counter() - t0:.3f} s; {info['path']}", flush=True)
+
+
+def _native_parity(ctx: dict) -> None:
+    """16b: the single-threaded native build of 9c's rows and settings,
+    edge-identical to 9c's numpy host graph."""
+    t0 = time.perf_counter()
+    g = native.build_hnsw_native(ctx["library"][:HOST_N],
+                                 keys=np.arange(HOST_N), connectivity=16,
+                                 expansion_add=128, ndim=1024, seed=0,
+                                 n_threads=1)
+    t_native = time.perf_counter() - t0
+    check(_same_graph(g, ctx["host_graph"]), "16b: the single-threaded "
+          "native build differs from 9c's numpy host graph")
+    print(f"[16b native = host] {HOST_N:,} rows, M=16, expansion_add 128, "
+          f"one thread: {t_native:.3f} s against 9c's numpy "
+          f"{ctx['host_build_s']:.1f} s ({ctx['host_build_s'] / t_native:,.0f}"
+          f"x); edge-identical on every layer {g.layer_sizes}", flush=True)
+
+
+def _native_index(dev, base: np.ndarray) -> tuple:
+    """16c: HNSWIndex.build(backend="native") on every core; recall of
+    the card's search and of the native search against the card's blocked
+    brute force (the matrix kernel). Returns the queries, their truth and
+    the matrix launches."""
+    index = HNSWIndex(ndim=1024, connectivity=16, device=dev)
+    index.add(np.arange(len(base)), base)
+    t0 = time.perf_counter()
+    g = index.build(backend="native")
+    t_build = time.perf_counter() - t0
+    _check_graph(g)
+    qidx = np.random.default_rng(99).choice(len(base), NATIVE_Q,
+                                            replace=False)
+    q = base[qidx]
+    _reset_counts()
+    torch.cuda.synchronize()
+    truth = _member_truth(base, qidx, dev, "16c")     # keys are row ids
+    launches = _counts("tanimoto_matrix")
+    check(launches["tanimoto_matrix"] > 0, "16c: the brute force never "
+          "launched tanimoto_matrix")
+    index.search(q, k=10, expansion_search=128)          # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, found = index.search(q, k=10, expansion_search=128)
+    t_card = time.perf_counter() - t0
+    recall = _recall(found, truth)
+    check(recall >= NATIVE_RECALL_BAR, f"16c: recall@10 {recall:.4f} at ef "
+          f"128 on the native graph (< {NATIVE_RECALL_BAR})")
+    t0 = time.perf_counter()
+    _, found_n = index.search(q, k=10, expansion_search=128,
+                              backend="native")
+    t_host = time.perf_counter() - t0
+    recall_n = _recall(found_n, truth)
+    check(recall_n >= NATIVE_SEARCH_BAR, f"16c: the native search's "
+          f"recall@10 {recall_n:.4f} at ef 128 (< {NATIVE_SEARCH_BAR})")
+    print(f"[16c native index] {len(base):,} rows, M=16, expansion_add 200, "
+          f"{os.cpu_count()} host threads: build {t_build:.2f} s "
+          f"({len(base) / t_build:,.0f} rows/s), layers {g.layer_sizes}; "
+          f"{NATIVE_Q} member queries at ef 128: the card's search recall@10 "
+          f"{recall:.4f}, {NATIVE_Q / t_card:,.0f} q/s; the native search "
+          f"recall@10 {recall_n:.4f}, {NATIVE_Q / t_host:,.0f} q/s; truth by "
+          f"the card's brute force, launches {launches}", flush=True)
+    return q, truth, launches
+
+
+def _native_fingerprints(ctx: dict) -> None:
+    """16d: 11a's store strings through the native fingerprinter, the
+    Python hash one by one and smiles_fingerprints; and the first
+    FP_SINGLE_N through smiles_fingerprint, which tries RDKit's import
+    for each string before it hashes."""
+    strings = list(ctx["store"].get_smiles_batch(range(CLI_N)).values())
+    t0 = time.perf_counter()
+    a = native.smiles_fingerprints_native(strings)
+    t1 = time.perf_counter()
+    b = np.stack([pack_fingerprints(_hash_fingerprint_bits(s, 1024, 2))
+                  for s in strings])
+    t2 = time.perf_counter()
+    c = smiles_fingerprints(strings)
+    t3 = time.perf_counter()
+    d = np.stack([smiles_fingerprint(s) for s in strings[:FP_SINGLE_N]])
+    t4 = time.perf_counter()
+    check(a.shape == (CLI_N, 32) and np.array_equal(a, b)
+          and np.array_equal(a, c) and np.array_equal(a[:FP_SINGLE_N], d),
+          "16d: native, Python and smiles_fingerprints fingerprints differ")
+    print(f"[16d native fingerprints] {CLI_N:,} strings: native "
+          f"{t1 - t0:.3f} s, the Python hash one by one {t2 - t1:.2f} s "
+          f"({(t2 - t1) / (t1 - t0):,.0f}x), smiles_fingerprints "
+          f"{t3 - t2:.3f} s; smiles_fingerprint one by one "
+          f"{(t4 - t3) / len(d) * 1e3:.3f} ms a string over {len(d):,}; "
+          f"array-equal", flush=True)
+
+
+def _native_partitioned(dev, base: np.ndarray, q, truth) -> None:
+    """16e: build_hnsw_partitioned(builder="auto") takes the native
+    builder (no bucket launch: no exact shard) and meets 10d's bar."""
+    check(partition._resolve_builder("auto", dev)
+          is native.build_hnsw_native, "16e: 'auto' is not the native "
+          "builder")
+    stage = {}
+    _reset_counts()
+    t0 = time.perf_counter()
+    g = build_hnsw_partitioned(base, n_shards=4, connectivity=16,
+                               expansion_add=128, seed=0, builder="auto",
+                               device=dev, stage_times=stage)
+    t_build = time.perf_counter() - t0
+    launches = _counts("tanimoto_bucketmin", "tanimoto_matrix")
+    _check_graph(g)
+    check(launches["tanimoto_bucketmin"] == 0, f"16e: an exact shard "
+          f"build ran ({launches})")
+    _, found = HNSWIndex.from_graph(g, device=dev).search(
+        q, k=10, expansion_search=64)
+    recall = _recall(found, truth)
+    check(recall >= PART_RECALL_BAR, f"16e: partitioned recall@10 "
+          f"{recall:.4f} at ef 64 (< {PART_RECALL_BAR})")
+    print(f"[16e partitioned auto] {len(base):,} rows, 4 native shards, "
+          f"M=16, expansion_add 128: {t_build:.2f} s (sub-builds "
+          f"{stage['sub_builds']:.2f} s, layer-0 stitch searches "
+          f"{stage['stitch_search']:.2f} s, merge {stage['merge']:.2f} s, "
+          f"layer >= 1 stitch {stage['stitch_upper']:.2f} s), layers "
+          f"{g.layer_sizes}; recall@10 at ef 64 {recall:.4f}; launches "
+          f"{launches}", flush=True)
+
+
+def phase_native(dev, ctx: dict, lib10: np.ndarray) -> dict:
+    """16: the native host path on the card's host, over 9c's slice and
+    graph, phase 10's library and 11a's strings; returns the launches of
+    the matrix kernel by 16c's brute force."""
+    t0 = time.perf_counter()
+    _native_library()
+    _native_parity(ctx)
+    base = lib10[:BUILD_N]
+    q, truth, launches = _native_index(dev, base)
+    _native_fingerprints(ctx)
+    _native_partitioned(dev, base, q, truth)
+    print(f"[16 native] phase 16 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3606,13 +3786,15 @@ def main() -> int:
         launches.update(nn_launches)
         launches.update(phase_engine_variants(dev, context))
         phase_port_forms(dev, context)
-        phase_other_builders(dev)
+        lib10 = phase_other_builders(dev)
         phase_deployment(dev, context)
         phase_chemistry(dev)
         phase_sweeps(dev, ctx10)
         del ctx10
         phase_scale(dev)
         pod_launches = phase_pod(dev, context)
+        launches["tanimoto_matrix"] += phase_native(
+            dev, context, lib10)["tanimoto_matrix"]
     except CheckFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -6,12 +6,15 @@ Tanimoto math, the exact all-pairs HNSW builder (and the numpy host
 builder), ``.npz`` graph storage, the beam search, the score-guided
 best-first traversal behind ``HNSWIndex`` / ``RADTraverser`` (the device
 engine, and the host engine of the distributed and remote deployments),
-the HNSW services and the HTTP index server, and the graph-sharded pod
-engine, search and build over a device mesh (:mod:`rad_tpu_torch.parallel`). Module paths and public
-names mirror ``rad_tpu`` so each piece has an obvious counterpart. This
-package imports ``torch``, numpy and the standard library only — never
-``jax`` and never ``rad_tpu`` (importing any ``rad_tpu`` module loads jax
-through ``rad_tpu/__init__.py``).
+the HNSW services and the HTTP index server, the graph-sharded pod
+engine, search and build over a device mesh (:mod:`rad_tpu_torch.parallel`,
+with ``PodTraverser`` at the top level), and the native host path
+(:mod:`rad_tpu_torch.native`: the C++ HNSW builder, host search, brute
+force and batch fingerprinter, compiled with ``g++`` on first use).
+Module paths and public names mirror ``rad_tpu`` so each piece has an
+obvious counterpart. This package imports ``torch``, numpy and the
+standard library only — never ``jax`` and never ``rad_tpu`` (importing
+any ``rad_tpu`` module loads jax through ``rad_tpu/__init__.py``).
 
 Conventions:
 
@@ -36,6 +39,7 @@ __all__ = [
     "create_distributed_traverser",
     "create_remote_traverser",
     "create_pod_traverser",
+    "PodTraverser",
 ]
 
 _LAZY = {
@@ -50,6 +54,7 @@ _LAZY = {
                                 "create_remote_traverser"),
     "create_pod_traverser": ("rad_tpu_torch.api.factories",
                              "create_pod_traverser"),
+    "PodTraverser": ("rad_tpu_torch.parallel.pod", "PodTraverser"),
 }
 
 

@@ -14,13 +14,14 @@ device, and raises when torch sees none (pass ``device="cpu"`` to run the
 kernels' plain twins on the CPU). ``backend="exact"`` runs
 :func:`~rad_tpu_torch.build.exact.build_hnsw_exact`, ``"device"`` the
 batched beam builder :func:`~rad_tpu_torch.build.device.build_hnsw_device`
-(both on the index's device) and ``"host"`` the numpy builder
-:func:`~rad_tpu_torch.build.reference.build_hnsw`; ``"auto"`` is the exact
-builder on the index's device. That last is a deliberate difference: the
-reference's ``"auto"`` picks its accelerator builder only on its
-accelerator, and the native or numpy host builder elsewhere. The
-reference's native builder is not ported. :meth:`HNSWIndex.insert` adds
-rows to the built graph in O(K)
+(both on the index's device), ``"native"`` the C++ builder on the host's
+cores :func:`~rad_tpu_torch.native.build_hnsw_native` and ``"host"`` the
+numpy builder :func:`~rad_tpu_torch.build.reference.build_hnsw`;
+``"auto"`` is the exact builder on the index's device. That last is a
+deliberate difference: the reference's ``"auto"`` picks its accelerator
+builder only on a TPU and only up to 2M rows, and otherwise the native
+builder, or the numpy one where the native library does not compile.
+:meth:`HNSWIndex.insert` adds rows to the built graph in O(K)
 (:func:`~rad_tpu_torch.build.incremental.insert_into_graph`).
 """
 
@@ -115,14 +116,11 @@ class HNSWIndex:
     # ---------------------------------------------------------------- build
     def build(self, backend: str | None = None, **kwargs) -> HNSWGraph:
         """Construct the graph from all added vectors (extra ``kwargs``
-        go to the exact or the batched beam builder; the host builder
-        takes none, as in the reference)."""
+        go to the exact, the batched beam or the native builder, such as
+        the native one's ``n_threads``; the host builder takes none, as in
+        the reference)."""
         backend = backend or self.backend
-        if backend == "native":
-            raise NotImplementedError(
-                "build backend 'native': the C++ host builder is not ported "
-                "(ROADMAP Queue 1, \"The native host path\")")
-        if backend not in ("auto", "exact", "host", "device"):
+        if backend not in ("auto", "exact", "host", "device", "native"):
             raise ValueError(f"unknown build backend {backend!r}")
         if self._graph is not None:
             return self._graph
@@ -140,6 +138,10 @@ class HNSWIndex:
             from rad_tpu_torch.build.reference import build_hnsw
 
             self._graph = build_hnsw(fps, **common)
+        elif backend == "native":
+            from rad_tpu_torch.native import build_hnsw_native
+
+            self._graph = build_hnsw_native(fps, **common, **kwargs)
         elif backend == "device":
             from rad_tpu_torch.build.device import build_hnsw_device
 
@@ -173,14 +175,13 @@ class HNSWIndex:
         ``expansion_search`` (default: the index's) on the index's device,
         with the two-stage prefix screen when ``prefix_filter`` is given.
         The brute force scans the library in blocks of 2**14 rows once
-        ``len(graph) * B`` passes 2**26, as the reference does. The
-        reference's ``backend="native"`` host search is not ported."""
-        if backend == "native" and not exact:
-            raise NotImplementedError(
-                "backend='native': the C++ host search is not ported "
-                "(ROADMAP Queue 1, \"The native host path\")")
+        ``len(graph) * B`` passes 2**26, as the reference does. With
+        ``backend="native"`` the beam search runs on the host's cores
+        instead (:func:`rad_tpu_torch.native.search_knn_native`), for a
+        host that serves a graph without a card."""
         queries = coerce_packed(queries, self.ndim)
         g = self.graph
+        ef = expansion_search or self.expansion_search
         if exact:
             from rad_tpu_torch.fp.pack import to_torch_packed
             from rad_tpu_torch.fp.tanimoto import (bruteforce_topk,
@@ -192,15 +193,19 @@ class HNSWIndex:
                 d, ids = bruteforce_topk_blocked(q, db, k, block=1 << 14)
             else:
                 d, ids = bruteforce_topk(q, db, k)
+            d, ids = d.cpu().numpy(), ids.cpu().numpy()
+        elif backend == "native":
+            from rad_tpu_torch.native import search_knn_native
+
+            d, ids = search_knn_native(g, queries, k=k, expansion_search=ef)
         else:
             from rad_tpu_torch.search.knn import search_device
 
             d, ids = search_device(
-                g, queries, k=k,
-                expansion_search=expansion_search or self.expansion_search,
+                g, queries, k=k, expansion_search=ef,
                 prefix_filter=prefix_filter, prefix_keep=prefix_keep,
                 device=self.device)
-        d, ids = d.cpu().numpy(), ids.cpu().numpy()
+            d, ids = d.cpu().numpy(), ids.cpu().numpy()
         kv = host_keys_view(g.keys)
         keys = np.where(ids >= 0, np.asarray(kv[np.maximum(ids, 0)]), -1)
         return d, keys

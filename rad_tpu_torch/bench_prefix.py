@@ -12,9 +12,8 @@ the merge sorts ``ef + keep`` keys instead of ``ef + E·M0``.
 
 The library is :func:`rad_tpu_torch.synthetic.make_library` (the
 mutation-tree recipe, seed 0), not the reference's ``enrichment_example``
-library, and the graph comes from the port's exact builder
-(:func:`~rad_tpu_torch.build.exact.build_hnsw_exact`) where the reference
-builds with its native C++ builder, which the port does not have. The
+library. The graph comes from the reference's builder, the C++ builder on
+every host core (:func:`~rad_tpu_torch.native.build_hnsw_native`). The
 truth is the brute force (:func:`~rad_tpu_torch.fp.tanimoto.
 bruteforce_topk_blocked`). Each config is searched twice, the second time
 timed (host clock, ids read back). Progress goes to stderr; the last line
@@ -271,19 +270,18 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
 
-    from rad_tpu_torch.build.exact import build_hnsw_exact
     from rad_tpu_torch.fp.pack import to_torch_packed
     from rad_tpu_torch.fp.tanimoto import bruteforce_topk_blocked
+    from rad_tpu_torch.native import build_hnsw_native
     from rad_tpu_torch.synthetic import make_library
 
     fps, _ = make_library(args.n, args.n_bits, seed=0)
     rng = np.random.default_rng(99)
     queries = fps[rng.choice(args.n, args.q, replace=False)]
-    log(f"building {args.n}-node graph (exact, {device}) ...")
+    log(f"building {args.n}-node graph (native) ...")
     t0 = time.perf_counter()
-    graph = build_hnsw_exact(fps, connectivity=args.connectivity,
-                             expansion_add=args.expansion_add, seed=0,
-                             device=device)
+    graph = build_hnsw_native(fps, connectivity=args.connectivity,
+                              expansion_add=args.expansion_add, seed=0)
     log(f"build: {time.perf_counter() - t0:.1f}s")
 
     log("exact ground truth ...")

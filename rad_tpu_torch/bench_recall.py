@@ -2,7 +2,7 @@
 over a sweep of ``expansion_search``.
 
     python -m rad_tpu_torch.bench_recall [--n 100000] [--q 256]
-        [--builder host|exact|device] [--device cuda]
+        [--builder native|host|exact|device] [--device cuda]
 
 The port of ``benchmarks/bench_recall.py``, with its flags and its JSON
 line, plus ``"builder"``. It builds a graph over N fingerprints (the
@@ -14,10 +14,12 @@ recall@k against the exact top-k of
 :func:`~rad_tpu_torch.fp.tanimoto.bruteforce_topk_blocked` (the matrix
 kernel).
 
-``--builder``: ``host`` (the default) is the numpy host builder
-(:func:`~rad_tpu_torch.build.reference.build_hnsw`), the reference's own
-fallback when its native builder is missing (the port has none);
-``exact`` the all-pairs builder on the card
+``--builder``: ``native`` (the default, as in the reference) is the C++
+builder on every host core (:func:`~rad_tpu_torch.native.
+build_hnsw_native`); ``host`` the numpy host builder
+(:func:`~rad_tpu_torch.build.reference.build_hnsw`), the reference's
+fallback when its native builder is missing, which the port does not take
+silently; ``exact`` the all-pairs builder on the card
 (:func:`~rad_tpu_torch.build.exact.build_hnsw_exact`); ``device`` the
 batched beam insert (:func:`~rad_tpu_torch.build.device.build_hnsw_device`,
 1,024 rows a batch, ``benchmarks/bench_build_device.py``'s default). Recall belongs to a graph: a number from
@@ -49,7 +51,7 @@ from rad_tpu_torch.devices import resolve_device
 
 __all__ = ["build_graph", "load_fingerprints", "recall_at_k", "main"]
 
-BUILDERS = ("host", "exact", "device")
+BUILDERS = ("native", "host", "exact", "device")
 DEVICE_BUILD_BATCH = 1024
 
 
@@ -85,6 +87,10 @@ def load_fingerprints(library: str, n: int, n_bits: int, q: int,
 def build_graph(builder: str, fps: np.ndarray, connectivity: int,
                 expansion_add: int, device):
     """The graph of ``fps`` from one of :data:`BUILDERS` (seed 0)."""
+    if builder == "native":
+        from rad_tpu_torch.native import build_hnsw_native
+        return build_hnsw_native(fps, connectivity=connectivity,
+                                 expansion_add=expansion_add, seed=0)
     if builder == "host":
         from rad_tpu_torch.build.reference import build_hnsw
         return build_hnsw(fps, connectivity=connectivity,
@@ -168,8 +174,9 @@ def main(argv=None, result: dict | None = None) -> int:
     ap.add_argument("--fps-npz", default=None,
                     help="load packed fingerprints from this npz's "
                          "'packed' member; overrides --library, checks --n")
-    ap.add_argument("--builder", choices=BUILDERS, default="host",
-                    help="host = the numpy host builder (the reference's "
+    ap.add_argument("--builder", choices=BUILDERS, default="native",
+                    help="native = the C++ builder on the host's cores; "
+                         "host = the numpy host builder (the reference's "
                          "fallback); exact = the all-pairs builder; "
                          "device = the batched beam insert")
     ap.add_argument("--device", default=None,

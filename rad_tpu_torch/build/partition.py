@@ -45,18 +45,22 @@ def _resolve_builder(builder, device) -> Callable[..., HNSWGraph]:
     """Map a builder name to a callable (build_hnsw's kwargs); the device
     builders run on ``device``.
 
-    ``"auto"`` is the host builder: the reference's ``"auto"`` takes its
-    native C++ builder when that toolchain is present and the host
-    builder otherwise, and the native builder is not ported."""
+    ``"auto"`` is the native C++ builder when its library compiles
+    (:func:`~rad_tpu_torch.native.native_available`), else the numpy host
+    builder. The reference's ``"auto"`` takes the native builder whenever
+    its module imports, and so raises at build time on a host without a
+    compiler."""
     if callable(builder):
         return builder
-    if builder in ("host", "auto"):
+    if builder == "auto":
+        from rad_tpu_torch.native import native_available
+        builder = "native" if native_available() else "host"
+    if builder == "host":
         from rad_tpu_torch.build.reference import build_hnsw
         return build_hnsw
     if builder == "native":
-        raise NotImplementedError(
-            "builder 'native': the C++ host builder is not ported (ROADMAP "
-            "Queue 1, \"The native host path\")")
+        from rad_tpu_torch.native import build_hnsw_native
+        return build_hnsw_native
     if builder == "device":
         from rad_tpu_torch.build.device import build_hnsw_device
         return functools.partial(build_hnsw_device, device=device)
@@ -191,12 +195,13 @@ def build_hnsw_partitioned(
     :func:`rad_tpu_torch.build.reference.build_hnsw`, plus:
 
     n_shards:   number of partitions (round-robin over input rows).
-    builder:    'host' (the numpy builder; also what 'auto' picks, the
-                native builder not being ported), 'device' (the batched
-                beam builder), 'exact' (the all-pairs builder, whose
-                O(shard²) distances are the regime sharding creates), or a
-                callable with build_hnsw's kwargs, run once per shard.
-                'device' and 'exact' shards build on ``device``.
+    builder:    'native' (the C++ builder on the host's cores; what
+                'auto' picks when its library compiles), 'host' (the numpy
+                builder; 'auto' otherwise), 'device' (the batched beam
+                builder), 'exact' (the all-pairs builder, whose O(shard²)
+                distances are the regime sharding creates), or a callable
+                with build_hnsw's kwargs, run once per shard. 'device' and
+                'exact' shards build on ``device``.
     stitch_k:   cross-shard nearest neighbors requested per (node, shard)
                 pair for the layer-0 stitch (default: ``connectivity``).
     stitch_ef:  search beam width of the stitch queries

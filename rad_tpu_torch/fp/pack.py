@@ -179,7 +179,9 @@ def _hash_fingerprint_bits(smiles: str, n_bits: int,
     """The fingerprint used when RDKit is not importable: every byte
     substring of length 1 to ``2 * radius + 1`` of the SMILES string
     sets bit ``fnv1a64(substring) % n_bits`` (bit 0 when none is set).
-    Deterministic across processes, and similar strings share bits."""
+    Deterministic across processes, and similar strings share bits;
+    :func:`rad_tpu_torch.native.smiles_fingerprints_native` computes the
+    same bits."""
     bits = np.zeros(n_bits, dtype=np.uint8)
     data = smiles.encode("utf-8")
     max_len = 2 * radius + 1
@@ -216,8 +218,26 @@ def smiles_fingerprint(smiles: str, n_bits: int = 1024,
 def smiles_fingerprints(smiles: Sequence[str] | Iterable[str],
                         n_bits: int = 1024, radius: int = 2) -> np.ndarray:
     """Packed ``[N, W]`` uint32 fingerprints of a batch of SMILES strings,
-    one :func:`smiles_fingerprint` each. ``rad_tpu`` hands batches of more
-    than 64 strings without RDKit to its multithreaded C++ fingerprinter,
-    which computes the same bits; this package has no native path yet."""
+    one :func:`smiles_fingerprint` each. Without RDKit, a batch of more
+    than 64 strings goes to the multithreaded C++ fingerprinter
+    (:func:`rad_tpu_torch.native.smiles_fingerprints_native`), which
+    computes the same bits, as in ``rad_tpu``; only where its library
+    does not compile does the batch stay in Python. An error inside the
+    native call is raised, not swallowed."""
+    smiles = list(smiles)
+    if len(smiles) > 64 and not _has_rdkit():
+        from rad_tpu_torch.native import (native_available,
+                                          smiles_fingerprints_native)
+        if native_available():
+            return smiles_fingerprints_native(smiles, n_bits=n_bits,
+                                              radius=radius)
     return np.stack([smiles_fingerprint(s, n_bits, radius)
                      for s in smiles])
+
+
+def _has_rdkit() -> bool:
+    try:
+        import rdkit  # noqa: F401
+    except ImportError:
+        return False
+    return True

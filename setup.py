@@ -9,7 +9,8 @@ setup(
     long_description=open("README.md").read(),
     long_description_content_type="text/markdown",
     packages=find_packages(include=["rad_tpu", "rad_tpu.*"]),
-    package_data={"rad_tpu.native": ["*.cpp"]},
+    package_data={"rad_tpu.native": ["*.cpp"],
+                  "rad_tpu_torch.native": ["*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -85,14 +85,24 @@ def test_search_exact_matches_reference(library):
     np.testing.assert_array_equal(d, rd)
     np.testing.assert_array_equal(k, rk)
     assert k[0, 0] == keys[0] and d[0, 0] == 0
-    with pytest.raises(NotImplementedError, match="The native host path"):
-        port.search(fps[:5], k=10, backend="native")
-    with pytest.raises(NotImplementedError, match="The native host path"):
-        rad_tpu_torch.HNSWIndex(device="cpu").build(backend="native")
-    # the batched beam builder is ported: an empty index refuses it as
-    # it refuses every backend, for want of vectors
-    with pytest.raises(RuntimeError, match="no vectors added"):
-        rad_tpu_torch.HNSWIndex(device="cpu").build(backend="device")
+    # the native host search on the same graph (both exact builds are
+    # edge-identical at this size), and the native builder at one thread
+    rd, rk = ref.search(fps[:5], k=10, backend="native")
+    d, k = port.search(fps[:5], k=10, backend="native")
+    np.testing.assert_array_equal(d, rd)
+    np.testing.assert_array_equal(k, rk)
+    graphs = []
+    for pkg, on_cpu in ((rad_tpu, {}), (rad_tpu_torch, {"device": "cpu"})):
+        idx = pkg.HNSWIndex(ndim=1024, connectivity=8, **on_cpu)
+        idx.add(keys, fps)
+        graphs.append(idx.build(backend="native", n_threads=1))
+    for a, b in zip(graphs[0].neighbors, graphs[1].neighbors):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    np.testing.assert_array_equal(np.asarray(graphs[0].keys), graphs[1].keys)
+    # an empty index refuses every backend, for want of vectors
+    for backend in ("device", "native"):
+        with pytest.raises(RuntimeError, match="no vectors added"):
+            rad_tpu_torch.HNSWIndex(device="cpu").build(backend=backend)
 
 
 def test_traverser_views(library):
@@ -280,8 +290,8 @@ def test_entry_points_default_to_the_card(library, monkeypatch):
 
 def test_port_never_loads_jax():
     """A fresh interpreter runs a tiny quick start on the port, imports
-    its benchmark and command-line entry points and its multi-device
-    layer, runs a 30-scored pod traversal on a two-shard CPU mesh,
+    its benchmark and command-line entry points, its multi-device layer
+    and its native host path (which must load), runs a 30-scored pod traversal on a two-shard CPU mesh,
     fingerprints 20 library molecules with its Morgan copy, runs a
     30-scored
     distributed traversal and one neighbor fetch over loopback HTTP, and
@@ -317,7 +327,9 @@ def test_port_never_loads_jax():
         import rad_tpu_torch.bench_scale
         import rad_tpu_torch.parallel, rad_tpu_torch.parallel.multihost
         import rad_tpu_torch.build.exact_sharded
-        from rad_tpu_torch import create_pod_traverser
+        from rad_tpu_torch.native import native_available
+        assert native_available()
+        from rad_tpu_torch import PodTraverser, create_pod_traverser
         from rad_tpu_torch.parallel import make_mesh
         import torch
         p = create_pod_traverser(index, lambda s: float(s[1:]) % 7.5,
@@ -371,17 +383,24 @@ def test_package_data_ships_every_cuda_source():
     """An installed (non-editable) rad_tpu_torch builds its kernels from the
     package's own files: every file under ``csrc/`` and ``probes/`` (the
     ``.cu`` sources and the ``.cuh`` headers they include) matches a
-    package-data glob of ``pyproject.toml``."""
+    package-data glob of ``pyproject.toml``, and so does the native host
+    path's C++ source, in ``pyproject.toml`` and in ``setup.py``."""
     import fnmatch
     import tomllib
     from pathlib import Path
 
     with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
-        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
-            "rad_tpu_torch"]
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
     pkg = Path(REPO) / "rad_tpu_torch"
     files = [p.relative_to(pkg).as_posix() for d in ("csrc", "probes")
              for p in sorted((pkg / d).iterdir()) if p.is_file()]
     assert any(f.endswith(".cuh") for f in files)
-    assert [f for f in files
-            if not any(fnmatch.fnmatch(f, g) for g in globs)] == []
+    assert [f for f in files if not any(fnmatch.fnmatch(f, g)
+                                        for g in data["rad_tpu_torch"])] == []
+    native = sorted(p.name for p in (pkg / "native").iterdir()
+                    if p.suffix not in (".py", ".pyc") and p.is_file())
+    assert native == ["hnsw_builder.cpp"]
+    assert [f for f in native if not any(
+        fnmatch.fnmatch(f, g) for g in data["rad_tpu_torch.native"])] == []
+    with open(os.path.join(REPO, "setup.py")) as f:
+        assert '"rad_tpu_torch.native": ["*.cpp"]' in f.read()

@@ -79,11 +79,22 @@ def test_cuda_matmul_path_equals_exact_nn():
                                                   1 << 13).to(dev))
 
 
-def test_bench_prefix_on_the_cpu(capsys):
+def test_bench_prefix_on_the_cpu(capsys, monkeypatch):
     """The prefix sweep on a small library when the CPU is asked for: the
     reference's JSON line, one result a config, the unscreened search's
-    recall high on an exact graph."""
+    recall high on a graph from the native builder, the reference's."""
     import json
+
+    from rad_tpu_torch import native
+
+    built = []
+    real = native.build_hnsw_native
+
+    def recorded(fps, **kw):
+        built.append(len(fps))
+        return real(fps, **kw)
+
+    monkeypatch.setattr(native, "build_hnsw_native", recorded)
     assert bench_prefix.main(["--n", "1500", "--q", "32", "--n-bits", "256",
                               "--connectivity", "8", "--configs",
                               "0:0,128:16,64:64", "--device", "cpu"]) == 0
@@ -95,3 +106,4 @@ def test_bench_prefix_on_the_cpu(capsys):
         (0, 0), (128, 16), (64, 64)]
     assert line["results"][0]["recall"] >= 0.9
     assert all(r["qps"] > 0 for r in line["results"])
+    assert built == [1500]

@@ -61,7 +61,7 @@ def _last_json(capsys) -> dict:
 
 
 @pytest.mark.parametrize("builder,n", [("exact", 1500), ("host", 300),
-                                       ("device", 600)])
+                                       ("device", 600), ("native", 1500)])
 def test_recalls_equal_the_reference_on_one_graph(tmp_path, capsys, builder,
                                                   n):
     cache = str(tmp_path / "g.npz")
@@ -106,9 +106,26 @@ def test_uniform_library_and_queries_match_the_reference():
     np.testing.assert_array_equal(q_t, want[idx])
 
 
-def test_builder_is_refused_by_name():
+def test_builder_is_refused_by_name(monkeypatch):
+    """The native builder (the default, as in the reference) is the
+    reference's at one thread, edge for edge; a builder the port does not
+    have is refused by name."""
+    import functools
+
+    from rad_tpu.native import build_hnsw_native
+    from rad_tpu_torch import native
+    from test_torch_reference import _assert_same_graph
+
+    monkeypatch.setattr(native, "build_hnsw_native", functools.partial(
+        native.build_hnsw_native, n_threads=1))
+    fps, _ = bench_recall.load_fingerprints("tree", 400, 256, 16)
+    got = bench_recall.build_graph("native", fps, 8, 64,
+                                   torch.device("cpu"))
+    _assert_same_graph(build_hnsw_native(fps, connectivity=8,
+                                         expansion_add=64, seed=0,
+                                         n_threads=1), got, "native")
     with pytest.raises(ValueError, match="builder"):
-        bench_recall.build_graph("native", np.zeros((4, 8), np.uint32), 16,
+        bench_recall.build_graph("gpu", np.zeros((4, 8), np.uint32), 16,
                                  64, torch.device("cpu"))
 
 

@@ -191,16 +191,23 @@ def test_merge_edges_on_tied_distances(heuristic, seed):
                                   err_msg=f"heuristic={heuristic}")
 
 
-def test_resolve_builder():
+def test_resolve_builder(monkeypatch):
+    from rad_tpu_torch import native
     from rad_tpu_torch.build.exact import build_hnsw_exact
     assert partition._resolve_builder("host", "cpu") is build_hnsw
+    assert partition._resolve_builder("native", "cpu") is (
+        native.build_hnsw_native)
+    # "auto" is native where its library loads (g++ is on this host) and
+    # the host builder only where it does not
+    assert native.native_available()
+    assert partition._resolve_builder("auto", "cpu") is (
+        native.build_hnsw_native)
+    monkeypatch.setattr(native, "native_available", lambda: False)
     assert partition._resolve_builder("auto", "cpu") is build_hnsw
     assert partition._resolve_builder(len, "cpu") is len
     exact = partition._resolve_builder("exact", "cpu")
     assert exact.func is build_hnsw_exact and exact.keywords == {
         "device": "cpu"}
-    with pytest.raises(NotImplementedError, match="The native host path"):
-        partition._resolve_builder("native", "cpu")
     with pytest.raises(ValueError, match="unknown builder"):
         partition._resolve_builder("gpu", "cpu")
     with pytest.raises(ValueError, match="n_shards must be >= 1"):

@@ -106,8 +106,13 @@ def test_index_search_matches_reference(graphs):
     d, k = port.search(queries, k=10, prefix_filter=128)
     np.testing.assert_array_equal(d, np.asarray(rd))
     np.testing.assert_array_equal(k, rk)
-    with pytest.raises(NotImplementedError, match="The native host path"):
-        port.search(queries, backend="native")
+    for ef in (None, 80):      # the native host search, same graph
+        rd, rk = ref.search(queries, k=10, expansion_search=ef,
+                            backend="native")
+        d, k = port.search(queries, k=10, expansion_search=ef,
+                           backend="native")
+        np.testing.assert_array_equal(d, rd)
+        np.testing.assert_array_equal(k, rk)
     d_p, i_p = knn.search_device(port.graph, queries, packed_adjacency=True,
                                  device="cpu")
     d_u, i_u = knn.search_device(port.graph, queries, device="cpu")

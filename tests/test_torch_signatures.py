@@ -4,7 +4,8 @@ For every module that both packages hold, each public function, each
 public class's ``__init__`` and public methods, must take the reference's
 parameters: the same names, in the same order, with the same kinds and
 defaults (``inspect.signature``; annotations aside). A package module must
-export every name of the reference's ``__all__``. The one difference
+export every name of the reference's ``__all__``, and so must the top-level
+package (``""``); ``native`` is held both ways. The one difference
 allowed everywhere is an extra ``device`` parameter: every entry point of
 the port takes one. Every other difference is listed in
 :data:`ALLOWED` with the diff it produces and its reason: a ROADMAP Queue 1
@@ -36,12 +37,13 @@ SUBMODULES = [
     "traverse.coordinator", "traverse.device", "traverse.driver",
     "traverse.multi", "traverse.pipeline", "traverse.spill",
     "traverse.structures", "traverse.workers",
-    "utils.profiling",
+    "utils.profiling", "native",
 ]
-PACKAGES = ["api", "build", "chem", "fp", "graph", "parallel", "search",
-            "server", "service", "store", "traverse", "utils"]
+# "" is the top-level package
+PACKAGES = ["", "api", "build", "chem", "fp", "graph", "native", "parallel",
+            "search", "server", "service", "store", "traverse", "utils"]
+MODULES = SUBMODULES + [p for p in PACKAGES if p not in SUBMODULES]
 
-Q1_NATIVE = "ROADMAP Queue 1, 'The native host path'"
 NOT_PORTED = "not ported by design (ROADMAP, 'What not to carry over')"
 LAYOUT = "an internal laid out differently"
 
@@ -221,14 +223,16 @@ def _members(mod):
 
 def module_gaps(sub: str) -> dict:
     """``{"sub:name": diff}`` for every gap of one module pair."""
-    ref = importlib.import_module("rad_tpu." + sub)
-    port = importlib.import_module("rad_tpu_torch." + sub)
+    ref = importlib.import_module(".".join(filter(None, ("rad_tpu", sub))))
+    port = importlib.import_module(
+        ".".join(filter(None, ("rad_tpu_torch", sub))))
     gaps = {}
     if sub in PACKAGES:
         for name in getattr(ref, "__all__", []):
             if not hasattr(port, name):
                 gaps[f"{sub}:{name}"] = "missing"
-        return gaps
+        if sub not in SUBMODULES:
+            return gaps
     ref_m, port_m = _members(ref), _members(port)
     for name, obj in ref_m.items():
         if name not in port_m:
@@ -242,7 +246,7 @@ def module_gaps(sub: str) -> dict:
     return gaps
 
 
-@pytest.mark.parametrize("sub", SUBMODULES + PACKAGES)
+@pytest.mark.parametrize("sub", MODULES)
 def test_signatures_match_reference(sub):
     gaps = module_gaps(sub)
     listed = {k: v[0] for k, v in ALLOWED.items()
@@ -255,5 +259,25 @@ def test_signatures_match_reference(sub):
 
 def test_allow_list_names_known_modules_and_reasons():
     for key, (diff, reason) in ALLOWED.items():
-        assert key.split(":")[0] in SUBMODULES + PACKAGES, key
+        assert key.split(":")[0] in MODULES, key
         assert diff and reason, key
+
+
+def test_top_level_pod_traverser_is_lazy():
+    """``rad_tpu_torch.PodTraverser`` is the pod module's class, as in the
+    reference, and importing the package loads no ``parallel`` module."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys, rad_tpu_torch\n"
+            "assert not [m for m in sys.modules\n"
+            "            if m.startswith('rad_tpu_torch.parallel')]\n"
+            "from rad_tpu_torch.parallel.pod import PodTraverser\n"
+            "assert rad_tpu_torch.PodTraverser is PodTraverser\n"
+            "print('lazy')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "lazy" in proc.stdout
