@@ -44,6 +44,7 @@ from rad_tpu_torch.fp.kernels import (decode_bucket_keys, tanimoto_bucketmin,
                                       tanimoto_matrix)
 from rad_tpu_torch.fp.pack import popcount_rows_np
 from rad_tpu_torch.graph.storage import HNSWGraph
+from rad_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -279,28 +280,29 @@ def _select_probed(blocks, packed, pops, n_pad: int, k: int, q_block: int,
     width = min(m, min(heuristic_k, k))
     sel = torch.full((n_pad + 1, width), -1, dtype=torch.int32, device=dev)
     sel_d = torch.full((n_pad + 1, width), INF, device=dev)
-    span = max(1, sel_block // q_block)
-    while group := list(itertools.islice(blocks, span)):
+    per_group = max(1, sel_block // q_block)
+    while group := list(itertools.islice(blocks, per_group)):
         bd, ids, perm_rows = (torch.cat(x) for x in zip(*group))
         del group
         if sync and dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        for r0 in range(0, bd.shape[0], sel_block):
-            qi = perm_rows[r0:r0 + sel_block]
-            active = qi >= 0
-            safe_q = torch.where(active, qi, 0)
-            s = _select_neighbors(packed, pops, safe_q,
-                                  bd[r0:r0 + sel_block],
-                                  ids[r0:r0 + sel_block], m, heuristic_k,
-                                  active)
-            rows = torch.where(active, qi, n_pad).long()
-            sel[rows] = s
-            sel_d[rows] = _dist_rows(packed, pops, safe_q, s,
-                                     (s >= 0) & active[:, None])
-        del bd, ids
-        if sync and dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        with span("build.selection"):
+            for r0 in range(0, bd.shape[0], sel_block):
+                qi = perm_rows[r0:r0 + sel_block]
+                active = qi >= 0
+                safe_q = torch.where(active, qi, 0)
+                s = _select_neighbors(packed, pops, safe_q,
+                                      bd[r0:r0 + sel_block],
+                                      ids[r0:r0 + sel_block], m,
+                                      heuristic_k, active)
+                rows = torch.where(active, qi, n_pad).long()
+                sel[rows] = s
+                sel_d[rows] = _dist_rows(packed, pops, safe_q, s,
+                                         (s >= 0) & active[:, None])
+            del bd, ids
+            if sync and dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         if times is not None:
             times["selection"] = (times.get("selection", 0.0)
                                   + time.perf_counter() - t0)
@@ -459,7 +461,9 @@ def build_hnsw_exact(
     a layer probes, ``"bisection"`` and ``"probe_tables"`` (not part of
     ``"candidates"``), and, when ``probes`` is given, lists this build's
     probed layers under ``"probed_layers"``; the device is synchronized at each stage boundary
-    for that.
+    for that. Inside :func:`rad_tpu_torch.utils.profiling.recording` the
+    three stages are the spans ``build.candidates``, ``build.selection``
+    and ``build.symmetrization``.
     """
     bad = sorted(k for k in unported if k in _UNPORTED)
     if bad:
@@ -598,32 +602,37 @@ def build_hnsw_exact(
                 if use_probe else None)
         elif use_probe:
             # selection streams into the scan and times itself
-            sel, sel_d = _select_probed(
-                _probed_blocks(packed_l, pops_l, n_l, k, qb, csz, bkt,
-                               probes, probe_sample,
-                               seed * 1_000_003 + 7919 * (l + 1),
-                               packed[:n_l], probe_granularity, probe_width,
-                               bucket_approx, times),
-                packed_l, pops_l, n_pad, k, qb, min(m, cap), heuristic_k,
-                sb, times, sync=stage_times is not None)
+            with span("build.candidates"):
+                sel, sel_d = _select_probed(
+                    _probed_blocks(packed_l, pops_l, n_l, k, qb, csz, bkt,
+                                   probes, probe_sample,
+                                   seed * 1_000_003 + 7919 * (l + 1),
+                                   packed[:n_l], probe_granularity,
+                                   probe_width, bucket_approx, times),
+                    packed_l, pops_l, n_pad, k, qb, min(m, cap),
+                    heuristic_k, sb, times, sync=stage_times is not None)
         else:
-            cand_d, cand_id = _allpairs_topk(packed_l, pops_l, n_l, k, qb,
-                                             cb, bkt, bucket_approx)
-            _sync_if(stage_times, device)
+            with span("build.candidates"):
+                cand_d, cand_id = _allpairs_topk(packed_l, pops_l, n_l, k,
+                                                 qb, cb, bkt, bucket_approx)
+                _sync_if(stage_times, device)
             t_sel = time.perf_counter()
-            sel, sel_d = _select_layer(packed_l, pops_l, cand_d, cand_id,
-                                       n_l, min(m, cap), heuristic_k, sb)
-            del cand_d, cand_id
-            _sync_if(stage_times, device)
+            with span("build.selection"):
+                sel, sel_d = _select_layer(packed_l, pops_l, cand_d,
+                                           cand_id, n_l, min(m, cap),
+                                           heuristic_k, sb)
+                del cand_d, cand_id
+                _sync_if(stage_times, device)
             times["selection"] += time.perf_counter() - t_sel
         _sync_if(stage_times, device)
         t1 = time.perf_counter()
-        if sharded:
-            rows = xs.symmetrize_sharded(sel, sel_d, n_l, cap, mesh,
-                                         mesh_axis).full()
-        else:
-            rows = _symmetrize(sel, sel_d, n_l, cap)
-        neighbors.append(rows[:n_l].cpu().numpy())
+        with span("build.symmetrization"):
+            if sharded:
+                rows = xs.symmetrize_sharded(sel, sel_d, n_l, cap, mesh,
+                                             mesh_axis).full()
+            else:
+                rows = _symmetrize(sel, sel_d, n_l, cap)
+            neighbors.append(rows[:n_l].cpu().numpy())
         t2 = time.perf_counter()
         # the partition, the probe lists and the selection count as stages
         # of their own
@@ -665,24 +674,27 @@ def _sharded_stages(xs, mesh, axis, rep_packed, rep_pops, packed_l, pops_l,
     """A sharded layer's candidates (exact, or probed when ``probe`` holds
     the probed stage's settings) and selection, timed into ``times``
     (the candidate stage's seconds are counted by the caller)."""
-    if probe is None:
-        cand_d, cand_id = xs.allpairs_topk_sharded(
-            rep_packed, rep_pops, n_l, k, qb, cb, bkt, mesh, axis, approx)
-    else:
-        csz, probes, probe_sample, seed, host, granularity, width = probe
-        layout = _probed_layout(packed_l, pops_l, k, qb, csz, probes,
-                                probe_sample, seed, host, granularity,
-                                width, times)
-        cand_d, cand_id = xs.probed_topk_sharded(
-            *(xs.replicate(t, mesh) for t in layout[:3]), layout[3], n_pad,
-            k, qb, csz, bkt, mesh, axis, approx, n_real=n_l)
-        del layout
-    _sync_mesh(stage_times, mesh)
+    with span("build.candidates"):
+        if probe is None:
+            cand_d, cand_id = xs.allpairs_topk_sharded(
+                rep_packed, rep_pops, n_l, k, qb, cb, bkt, mesh, axis,
+                approx)
+        else:
+            csz, probes, probe_sample, seed, host, granularity, width = probe
+            layout = _probed_layout(packed_l, pops_l, k, qb, csz, probes,
+                                    probe_sample, seed, host, granularity,
+                                    width, times)
+            cand_d, cand_id = xs.probed_topk_sharded(
+                *(xs.replicate(t, mesh) for t in layout[:3]), layout[3],
+                n_pad, k, qb, csz, bkt, mesh, axis, approx, n_real=n_l)
+            del layout
+        _sync_mesh(stage_times, mesh)
     t0 = time.perf_counter()
-    sel, sel_d = xs.select_layer_sharded(rep_packed, rep_pops, cand_d,
-                                         cand_id, n_l, m, heuristic_k, sb,
-                                         mesh, axis)
-    _sync_mesh(stage_times, mesh)
+    with span("build.selection"):
+        sel, sel_d = xs.select_layer_sharded(rep_packed, rep_pops, cand_d,
+                                             cand_id, n_l, m, heuristic_k,
+                                             sb, mesh, axis)
+        _sync_mesh(stage_times, mesh)
     times["selection"] += time.perf_counter() - t0
     return sel, sel_d
 

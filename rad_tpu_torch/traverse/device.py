@@ -49,6 +49,7 @@ from rad_tpu_torch.graph.adjpack import (adj_bits_for, pack_adjacency_numpy,
 from rad_tpu_torch.graph.storage import HNSWGraph
 from rad_tpu_torch.traverse import candidate_ops
 from rad_tpu_torch.traverse.candidate_ops import _first_occurrence
+from rad_tpu_torch.utils.profiling import _read_back, count, span
 
 __all__ = ["DeviceGraph", "TraversalState", "DenseStateOps",
            "flatten_adjacency_host", "prepare_device_graph",
@@ -401,30 +402,31 @@ def _refill_two_level(state: TraversalState) -> None:
     The best H entries become the sorted head, the next CC the (now
     sorted) cold store; anything past total capacity drops (counted). The
     watermark becomes the head's max."""
-    h = state.f_score.shape[0]
-    cc = state.cold_score.shape[0] - 1
-    p = state.f_buf_score.shape[0] - 1
-    dev = state.f_score.device
-    live = torch.arange(h, device=dev) >= state.f_cursor
-    ss, sr = _sorted(
-        torch.cat([state.f_score.masked_fill(~live, INF),
-                   state.f_buf_score[:p], state.cold_score[:cc]]),
-        torch.cat([state.f_row, state.f_buf_row[:p], state.cold_row[:cc]]))
-    n_cold = torch.isfinite(ss[h:h + cc]).sum()
-    dropped = torch.isfinite(ss[h + cc:]).sum()
-    state.f_score.copy_(ss[:h])
-    state.f_row.copy_(sr[:h])
-    state.cold_score[:cc] = ss[h:h + cc]
-    state.cold_row[:cc] = sr[h:h + cc]
-    state.watermark = torch.where(n_cold > 0, ss[h - 1],
-                                  torch.full_like(state.watermark, INF))
-    state.f_cursor = torch.zeros_like(state.f_cursor)
-    state.f_buf_score.fill_(INF)
-    state.f_buf_row.zero_()
-    state.f_buf_n = torch.zeros_like(state.f_buf_n)
-    state.f_live = state.f_live - dropped
-    state.cold_n = n_cold.to(torch.int32)
-    state.n_dropped = state.n_dropped + dropped
+    with span("step.refill"):
+        h = state.f_score.shape[0]
+        cc = state.cold_score.shape[0] - 1
+        p = state.f_buf_score.shape[0] - 1
+        dev = state.f_score.device
+        live = torch.arange(h, device=dev) >= state.f_cursor
+        ss, sr = _sorted(
+            torch.cat([state.f_score.masked_fill(~live, INF),
+                       state.f_buf_score[:p], state.cold_score[:cc]]),
+            torch.cat([state.f_row, state.f_buf_row[:p], state.cold_row[:cc]]))
+        n_cold = torch.isfinite(ss[h:h + cc]).sum()
+        dropped = torch.isfinite(ss[h + cc:]).sum()
+        state.f_score.copy_(ss[:h])
+        state.f_row.copy_(sr[:h])
+        state.cold_score[:cc] = ss[h:h + cc]
+        state.cold_row[:cc] = sr[h:h + cc]
+        state.watermark = torch.where(n_cold > 0, ss[h - 1],
+                                      torch.full_like(state.watermark, INF))
+        state.f_cursor = torch.zeros_like(state.f_cursor)
+        state.f_buf_score.fill_(INF)
+        state.f_buf_row.zero_()
+        state.f_buf_n = torch.zeros_like(state.f_buf_n)
+        state.f_live = state.f_live - dropped
+        state.cold_n = n_cold.to(torch.int32)
+        state.n_dropped = state.n_dropped + dropped
 
 
 def expand(state: TraversalState, dg: DeviceGraph, batch: int,
@@ -445,73 +447,77 @@ def expand(state: TraversalState, dg: DeviceGraph, batch: int,
       to_score: [B*M0] unique unscored node ids, compacted to the front in
                 adjacency order, -1 padded — the batch for host scoring.
     """
-    b = batch
-    c = state.f_score.shape[0]
-    p = state.f_buf_score.shape[0] - 1
-    if c < b:
-        raise ValueError(f"frontier head capacity {c} < batch {b}")
-    if state.cold_score.shape[0] > 1:
-        # two-level: refill when head + buffer cannot fill this batch and
-        # the cold store holds entries (pops never touch cold — the
-        # watermark keeps the global minimum in head + buffer)
-        need = ((state.f_live - state.cold_n) < b) & (state.cold_n > 0)
-        if bool(need):
-            _refill_two_level(state)
-    dev = state.f_score.device
-    # main candidates: the next B entries at the sorted head's cursor
-    start = torch.clamp(state.f_cursor, max=c - b)
-    offs = (start + torch.arange(b, dtype=torch.int32, device=dev)).long()
-    main_s = state.f_score[offs].masked_fill(offs < state.f_cursor, INF)
-    main_r = state.f_row[offs]
-    # buffer candidates: its best B (ties to the smaller slot)
-    buf_s, bidx = torch.sort(state.f_buf_score[:p], stable=True)
-    buf_s, bidx = buf_s[:b], bidx[:b]
-    cat_s = torch.cat([main_s, buf_s])
-    cat_r = torch.cat([main_r, state.f_buf_row[bidx]])
-    sel = torch.sort(cat_s, stable=True).indices[:b]
-    pop_score = cat_s[sel]
-    pop_row = cat_r[sel]
-    valid = torch.isfinite(pop_score)
-    state.f_cursor = state.f_cursor + ((sel < b) & valid).sum()
-    from_buf = (sel >= b) & valid
-    buf_slot = torch.where(from_buf, bidx[torch.clamp(sel - b, min=0)], p)
-    _set_drop_(state.f_buf_score, buf_slot, INF)
+    with span("step.expand"):
+        count("step")
+        b = batch
+        c = state.f_score.shape[0]
+        p = state.f_buf_score.shape[0] - 1
+        if c < b:
+            raise ValueError(f"frontier head capacity {c} < batch {b}")
+        if state.cold_score.shape[0] > 1:
+            # two-level: refill when head + buffer cannot fill this batch and
+            # the cold store holds entries (pops never touch cold — the
+            # watermark keeps the global minimum in head + buffer)
+            need = ((state.f_live - state.cold_n) < b) & (state.cold_n > 0)
+            with _read_back("refill_check"):
+                refill = bool(need)
+            if refill:
+                _refill_two_level(state)
+        dev = state.f_score.device
+        # main candidates: the next B entries at the sorted head's cursor
+        start = torch.clamp(state.f_cursor, max=c - b)
+        offs = (start + torch.arange(b, dtype=torch.int32, device=dev)).long()
+        main_s = state.f_score[offs].masked_fill(offs < state.f_cursor, INF)
+        main_r = state.f_row[offs]
+        # buffer candidates: its best B (ties to the smaller slot)
+        buf_s, bidx = torch.sort(state.f_buf_score[:p], stable=True)
+        buf_s, bidx = buf_s[:b], bidx[:b]
+        cat_s = torch.cat([main_s, buf_s])
+        cat_r = torch.cat([main_r, state.f_buf_row[bidx]])
+        sel = torch.sort(cat_s, stable=True).indices[:b]
+        pop_score = cat_s[sel]
+        pop_row = cat_r[sel]
+        valid = torch.isfinite(pop_score)
+        state.f_cursor = state.f_cursor + ((sel < b) & valid).sum()
+        from_buf = (sel >= b) & valid
+        buf_slot = torch.where(from_buf, bidx[torch.clamp(sel - b, min=0)], p)
+        _set_drop_(state.f_buf_score, buf_slot, INF)
 
-    level = _level_of_row(dg, pop_row)
-    node = pop_row - dg.offsets[level.long()]
-    safe_row = torch.where(valid, pop_row, 0)
-    adj_rows = (adjacency_rows(dg, safe_row) if gather_adj is None
-                else gather_adj(safe_row))
-    cand = adj_rows.masked_fill(~valid[:, None], -1)
+        level = _level_of_row(dg, pop_row)
+        node = pop_row - dg.offsets[level.long()]
+        safe_row = torch.where(valid, pop_row, 0)
+        adj_rows = (adjacency_rows(dg, safe_row) if gather_adj is None
+                    else gather_adj(safe_row))
+        cand = adj_rows.masked_fill(~valid[:, None], -1)
 
-    n = dg.n_nodes
-    cand_flat = cand.reshape(-1)
-    k = cand_flat.shape[0]
-    if fused_candidates:
-        to_score = candidate_ops.candidate_filter(cand_flat,
-                                                  state.scored[:n])
-    else:
-        cand_ok = cand_flat >= 0
-        safe_cand = torch.where(cand_ok, cand_flat, 0)
-        unscored = cand_ok & ~ops.gather(state.scored, safe_cand)
-        ids = torch.where(unscored, cand_flat, n)
-        # unique unscored ids compacted to the front, preserving adjacency
-        # order (the scoring order of the reference's work items)
-        mask = unscored & ops.first_occurrence(ids, n)
-        pos = torch.cumsum(mask, 0) - 1
-        to_score = torch.full((k + 1,), -1, dtype=torch.int32, device=dev)
-        to_score[torch.where(mask, pos, k)] = cand_flat
-        to_score = to_score[:k]
-    state.f_live = state.f_live - valid.sum()
-    state.n_steps = state.n_steps + 1
-    return state, {
-        "exp_node": node,
-        "exp_level": level,
-        "exp_score": pop_score,
-        "exp_valid": valid,
-        "cand": cand,
-        "to_score": to_score,
-    }
+        n = dg.n_nodes
+        cand_flat = cand.reshape(-1)
+        k = cand_flat.shape[0]
+        if fused_candidates:
+            to_score = candidate_ops.candidate_filter(cand_flat,
+                                                      state.scored[:n])
+        else:
+            cand_ok = cand_flat >= 0
+            safe_cand = torch.where(cand_ok, cand_flat, 0)
+            unscored = cand_ok & ~ops.gather(state.scored, safe_cand)
+            ids = torch.where(unscored, cand_flat, n)
+            # unique unscored ids compacted to the front, preserving adjacency
+            # order (the scoring order of the reference's work items)
+            mask = unscored & ops.first_occurrence(ids, n)
+            pos = torch.cumsum(mask, 0) - 1
+            to_score = torch.full((k + 1,), -1, dtype=torch.int32, device=dev)
+            to_score[torch.where(mask, pos, k)] = cand_flat
+            to_score = to_score[:k]
+        state.f_live = state.f_live - valid.sum()
+        state.n_steps = state.n_steps + 1
+        return state, {
+            "exp_node": node,
+            "exp_level": level,
+            "exp_score": pop_score,
+            "exp_valid": valid,
+            "cand": cand,
+            "to_score": to_score,
+        }
 
 
 def integrate(state: TraversalState, dg: DeviceGraph,
@@ -538,136 +544,144 @@ def integrate(state: TraversalState, dg: DeviceGraph,
     one-slot dummy (``init_state(score_table=False)``) it raises
     ``ValueError``, whatever the ops; unfused, such a state needs ops
     that override ``gather_scores``, else ``ValueError`` too."""
-    n = dg.n_nodes
-    cap = state.order_log.shape[0] - 1
-    dev = state.f_score.device
-    b, m0 = cand.shape
-    cand_flat = cand.reshape(-1)
-    cand_ok = cand_flat >= 0
-    safe_cand = torch.where(cand_ok, cand_flat, 0)
-    lev_flat = exp_level.repeat_interleave(m0)
-    row_flat = dg.offsets[lev_flat.long()] + safe_cand
+    with span("step.integrate"):
+        n = dg.n_nodes
+        cap = state.order_log.shape[0] - 1
+        dev = state.f_score.device
+        b, m0 = cand.shape
+        cand_flat = cand.reshape(-1)
+        cand_ok = cand_flat >= 0
+        safe_cand = torch.where(cand_ok, cand_flat, 0)
+        lev_flat = exp_level.repeat_interleave(m0)
+        row_flat = dg.offsets[lev_flat.long()] + safe_cand
 
-    _check_score_table(state, n, ops, fused_candidates)
-    if fused_candidates:
-        *_, fresh, push, cand_score = candidate_ops.integrate_candidates(
-            to_score, new_scores, cand_flat, row_flat, state.scored[:n],
-            state.scores[:n], state.enqueued[:dg.n_rows])
-    else:
-        # -- scored set: insert-if-absent (a pipelined driver can deliver
-        # an id in two in-flight batches; the first integration wins)
-        ts_ok = to_score >= 0
-        fresh = ts_ok & ~ops.gather(state.scored,
-                                    torch.where(ts_ok, to_score, 0))
-        ts_idx = torch.where(fresh, to_score, n)
-        ops.scatter_scores(state.scores, ts_idx, new_scores)
-        ops.scatter_(state.scored, ts_idx, True)
+        _check_score_table(state, n, ops, fused_candidates)
+        if fused_candidates:
+            *_, fresh, push, cand_score = candidate_ops.integrate_candidates(
+                to_score, new_scores, cand_flat, row_flat, state.scored[:n],
+                state.scores[:n], state.enqueued[:dg.n_rows])
+        else:
+            # -- scored set: insert-if-absent (a pipelined driver can deliver
+            # an id in two in-flight batches; the first integration wins)
+            ts_ok = to_score >= 0
+            fresh = ts_ok & ~ops.gather(state.scored,
+                                        torch.where(ts_ok, to_score, 0))
+            ts_idx = torch.where(fresh, to_score, n)
+            ops.scatter_scores(state.scores, ts_idx, new_scores)
+            ops.scatter_(state.scored, ts_idx, True)
 
-        # -- candidate enqueue: check-and-set at the expansion level
-        first = ops.first_occurrence(
-            torch.where(cand_ok, row_flat, dg.n_rows), dg.n_rows)
-        not_enq = ~ops.gather(state.enqueued,
-                              torch.where(cand_ok, row_flat, 0))
-        push = cand_ok & not_enq & first
-        ops.scatter_(state.enqueued,
-                     torch.where(push, row_flat, dg.n_rows), True)
-        cand_score = ops.gather_scores(state.scores,
-                                       safe_cand).masked_fill(~push, INF)
+            # -- candidate enqueue: check-and-set at the expansion level
+            first = ops.first_occurrence(
+                torch.where(cand_ok, row_flat, dg.n_rows), dg.n_rows)
+            not_enq = ~ops.gather(state.enqueued,
+                                  torch.where(cand_ok, row_flat, 0))
+            push = cand_ok & not_enq & first
+            ops.scatter_(state.enqueued,
+                         torch.where(push, row_flat, dg.n_rows), True)
+            cand_score = ops.gather_scores(state.scores,
+                                           safe_cand).masked_fill(~push, INF)
 
-    pos_in_batch = torch.cumsum(fresh, 0) - 1
-    log_pos = torch.where(fresh, (state.n_scored + pos_in_batch) % cap, cap)
-    _set_drop_(state.order_log, log_pos, to_score)
-    state.n_scored = state.n_scored + fresh.sum()
-    cand_row_entry = torch.where(push, row_flat, 0)
+        pos_in_batch = torch.cumsum(fresh, 0) - 1
+        log_pos = torch.where(fresh, (state.n_scored + pos_in_batch) % cap,
+                              cap)
+        _set_drop_(state.order_log, log_pos, to_score)
+        state.n_scored = state.n_scored + fresh.sum()
+        cand_row_entry = torch.where(push, row_flat, 0)
 
-    # -- descent: re-enqueue the expanded node at level-1
-    can_desc = exp_valid & (exp_level > 0)
-    down_row = dg.offsets[torch.clamp(exp_level - 1, min=0).long()] + exp_node
-    down_ok = can_desc & ~ops.gather(state.enqueued,
-                                     torch.where(can_desc, down_row, 0))
-    down_ok &= _first_occurrence(torch.where(down_ok, down_row, dg.n_rows),
-                                 dg.n_rows)
-    ops.scatter_(state.enqueued, torch.where(down_ok, down_row, dg.n_rows),
-                 True)
-    desc_score = exp_score.masked_fill(~down_ok, INF)
-    desc_row = torch.where(down_ok, down_row, 0)
+        # -- descent: re-enqueue the expanded node at level-1
+        can_desc = exp_valid & (exp_level > 0)
+        down_row = (dg.offsets[torch.clamp(exp_level - 1, min=0).long()]
+                    + exp_node)
+        down_ok = can_desc & ~ops.gather(state.enqueued,
+                                         torch.where(can_desc, down_row, 0))
+        down_ok &= _first_occurrence(
+            torch.where(down_ok, down_row, dg.n_rows), dg.n_rows)
+        ops.scatter_(state.enqueued, torch.where(down_ok, down_row, dg.n_rows),
+                     True)
+        desc_score = exp_score.masked_fill(~down_ok, INF)
+        desc_row = torch.where(down_ok, down_row, 0)
 
-    # -- frontier push: append to the buffer; merge-sort only when full.
-    # Pushes stay in candidate order (cumsum compaction), so equal scores
-    # keep slot order through every later stable selection.
-    new_s = torch.cat([cand_score, desc_score])
-    new_r = torch.cat([cand_row_entry, desc_row])
-    p_new = new_s.shape[0]
-    c = state.f_score.shape[0]
-    p = state.f_buf_score.shape[0] - 1
-    cc = state.cold_score.shape[0] - 1
-    finite = torch.isfinite(new_s)
-    if cc > 0:
-        # two-level routing: scores below the watermark take the head /
-        # buffer path; the rest append unsorted to the cold store
-        qual = finite & (new_s < state.watermark)
-        n_push = qual.sum()
-        to_cold = finite & ~qual
-        n_cold_new = to_cold.sum()
-        pos_cold = torch.where(
-            to_cold, state.cold_n + torch.cumsum(to_cold, 0) - 1, cc)
-        _set_drop_(state.cold_score, pos_cold, new_s)
-        _set_drop_(state.cold_row, pos_cold, new_r)
-        kept_cold = torch.clamp(state.cold_n + n_cold_new, max=cc) \
-            - state.cold_n
-        state.cold_n = state.cold_n + kept_cold
-        state.f_live = state.f_live + kept_cold
-        state.n_dropped = state.n_dropped + (n_cold_new - kept_cold)
-        buf_new = new_s.masked_fill(~qual, INF)
-    else:
-        n_push = finite.sum()
-        buf_new = new_s
+        # -- frontier push: append to the buffer; merge-sort only when full.
+        # Pushes stay in candidate order (cumsum compaction), so equal scores
+        # keep slot order through every later stable selection.
+        new_s = torch.cat([cand_score, desc_score])
+        new_r = torch.cat([cand_row_entry, desc_row])
+        p_new = new_s.shape[0]
+        c = state.f_score.shape[0]
+        p = state.f_buf_score.shape[0] - 1
+        cc = state.cold_score.shape[0] - 1
+        finite = torch.isfinite(new_s)
+        if cc > 0:
+            # two-level routing: scores below the watermark take the head /
+            # buffer path; the rest append unsorted to the cold store
+            qual = finite & (new_s < state.watermark)
+            n_push = qual.sum()
+            to_cold = finite & ~qual
+            n_cold_new = to_cold.sum()
+            pos_cold = torch.where(
+                to_cold, state.cold_n + torch.cumsum(to_cold, 0) - 1, cc)
+            _set_drop_(state.cold_score, pos_cold, new_s)
+            _set_drop_(state.cold_row, pos_cold, new_r)
+            kept_cold = torch.clamp(state.cold_n + n_cold_new, max=cc) \
+                - state.cold_n
+            state.cold_n = state.cold_n + kept_cold
+            state.f_live = state.f_live + kept_cold
+            state.n_dropped = state.n_dropped + (n_cold_new - kept_cold)
+            buf_new = new_s.masked_fill(~qual, INF)
+        else:
+            n_push = finite.sum()
+            buf_new = new_s
 
-    if p_new > p or bool(state.f_buf_n + n_push > p):
-        _merge(state, buf_new, new_r, n_push, c, p, cc, dev)
-    else:
-        fin = torch.isfinite(buf_new)
-        pos = torch.where(fin, state.f_buf_n + torch.cumsum(fin, 0) - 1, p)
-        _set_drop_(state.f_buf_score, pos, buf_new)
-        _set_drop_(state.f_buf_row, pos, new_r)
-        state.f_buf_n = state.f_buf_n + n_push
-        state.f_live = state.f_live + n_push
-    return state
+        merge = p_new > p
+        if not merge:
+            with _read_back("merge_check"):
+                merge = bool(state.f_buf_n + n_push > p)
+        if merge:
+            _merge(state, buf_new, new_r, n_push, c, p, cc, dev)
+        else:
+            fin = torch.isfinite(buf_new)
+            pos = torch.where(fin, state.f_buf_n + torch.cumsum(fin, 0) - 1, p)
+            _set_drop_(state.f_buf_score, pos, buf_new)
+            _set_drop_(state.f_buf_row, pos, new_r)
+            state.f_buf_n = state.f_buf_n + n_push
+            state.f_live = state.f_live + n_push
+        return state
 
 
 def _merge(state: TraversalState, buf_new, new_r, n_push, c: int, p: int,
            cc: int, dev) -> None:
     """Sort head-residual + buffer + this step's pushes into a new head;
     overflow spills to cold (two-level) or drops (counted)."""
-    live = torch.arange(c, device=dev) >= state.f_cursor
-    ss, sr = _sorted(
-        torch.cat([state.f_score.masked_fill(~live, INF),
-                   state.f_buf_score[:p], buf_new]),
-        torch.cat([state.f_row, state.f_buf_row[:p], new_r]))
-    spill_s, spill_r = ss[c:], sr[c:]
-    spill_fin = torch.isfinite(spill_s)
-    spill_n = spill_fin.sum()
-    if cc > 0:
-        sp_pos = torch.where(
-            spill_fin,
-            state.cold_n + torch.arange(spill_s.shape[0], device=dev), cc)
-        _set_drop_(state.cold_score, sp_pos, spill_s)
-        _set_drop_(state.cold_row, sp_pos, spill_r)
-        kept = torch.clamp(state.cold_n + spill_n, max=cc) - state.cold_n
-        state.cold_n = state.cold_n + kept
-        state.watermark = torch.where(spill_n > 0, ss[c - 1],
-                                      state.watermark)
-        dropped_now = spill_n - kept
-    else:
-        dropped_now = spill_n
-    state.f_score.copy_(ss[:c])
-    state.f_row.copy_(sr[:c])
-    state.f_cursor = torch.zeros_like(state.f_cursor)
-    state.f_buf_score.fill_(INF)
-    state.f_buf_row.zero_()
-    state.f_buf_n = torch.zeros_like(state.f_buf_n)
-    state.f_live = state.f_live + n_push - dropped_now
-    state.n_dropped = state.n_dropped + dropped_now
+    with span("step.merge"):
+        live = torch.arange(c, device=dev) >= state.f_cursor
+        ss, sr = _sorted(
+            torch.cat([state.f_score.masked_fill(~live, INF),
+                       state.f_buf_score[:p], buf_new]),
+            torch.cat([state.f_row, state.f_buf_row[:p], new_r]))
+        spill_s, spill_r = ss[c:], sr[c:]
+        spill_fin = torch.isfinite(spill_s)
+        spill_n = spill_fin.sum()
+        if cc > 0:
+            sp_pos = torch.where(
+                spill_fin,
+                state.cold_n + torch.arange(spill_s.shape[0], device=dev), cc)
+            _set_drop_(state.cold_score, sp_pos, spill_s)
+            _set_drop_(state.cold_row, sp_pos, spill_r)
+            kept = torch.clamp(state.cold_n + spill_n, max=cc) - state.cold_n
+            state.cold_n = state.cold_n + kept
+            state.watermark = torch.where(spill_n > 0, ss[c - 1],
+                                          state.watermark)
+            dropped_now = spill_n - kept
+        else:
+            dropped_now = spill_n
+        state.f_score.copy_(ss[:c])
+        state.f_row.copy_(sr[:c])
+        state.f_cursor = torch.zeros_like(state.f_cursor)
+        state.f_buf_score.fill_(INF)
+        state.f_buf_row.zero_()
+        state.f_buf_n = torch.zeros_like(state.f_buf_n)
+        state.f_live = state.f_live + n_push - dropped_now
+        state.n_dropped = state.n_dropped + dropped_now
 
 
 def prime(state: TraversalState, dg: DeviceGraph, node_ids: torch.Tensor,
@@ -793,8 +807,10 @@ def frontier_live(state: TraversalState) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # Device-scored traversal: pop -> score on the device -> integrate, with no
 # host scoring round trip. JAX's ``lax.while_loop`` is a host loop here that
-# reads the loop condition before every step (one synchronisation), so it
-# stops on exactly the step where the reference's loop stops.
+# reads the loop condition before every step, so it stops on exactly the
+# step where the reference's loop stops. With a two-level frontier a step
+# reads the device twice more (the refill and merge checks); each read is a
+# ``sync.<site>`` span and counter (rad_tpu_torch.utils.profiling).
 
 
 def _target_scorer(packed, pops, target_packed, target_pop):
@@ -814,21 +830,31 @@ def _device_loop(state: TraversalState, dg: DeviceGraph, score,
     n_to_score = int(n_to_score)
     steps = 0
     while steps < int(max_steps):
-        n_scored, live = torch.stack(
-            [state.n_scored.long(), frontier_live(state).long()]).tolist()
-        if n_scored >= n_to_score or live <= 0:
-            break
-        state, out = expand(state, dg, batch,
-                            fused_candidates=fused_candidates)
-        ts = out["to_score"]
-        # narrow_width: a step that discovers few ids scores and
-        # integrates only the front of to_score (the rest is -1 padding)
-        if (narrow_width is not None and narrow_width < ts.shape[0]
-                and int((ts >= 0).sum()) <= narrow_width):
-            ts = ts[:narrow_width]
-        state = integrate(state, dg, out["exp_node"], out["exp_level"],
-                          out["exp_score"], out["exp_valid"], out["cand"],
-                          ts, score(ts), fused_candidates=fused_candidates)
+        with span("step"):
+            with _read_back("loop"):
+                n_scored, live = torch.stack(
+                    [state.n_scored.long(),
+                     frontier_live(state).long()]).tolist()
+            if n_scored >= n_to_score or live <= 0:
+                break
+            state, out = expand(state, dg, batch,
+                                fused_candidates=fused_candidates)
+            ts = out["to_score"]
+            # narrow_width: a step that discovers few ids scores and
+            # integrates only the front of to_score (the rest is -1 padding)
+            if narrow_width is not None and narrow_width < ts.shape[0]:
+                with _read_back("narrow"):
+                    n_ids = int((ts >= 0).sum())
+                if n_ids <= narrow_width:
+                    ts = ts[:narrow_width]
+            with span("step.score"):
+                scores = score(ts)
+            state = integrate(state, dg, out["exp_node"], out["exp_level"],
+                              out["exp_score"], out["exp_valid"],
+                              out["cand"], ts, scores,
+                              fused_candidates=fused_candidates)
+            # freed before the next step, as a call's argument would be
+            del scores
         steps += 1
     return state
 

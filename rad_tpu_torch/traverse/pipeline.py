@@ -18,6 +18,8 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 
+from rad_tpu_torch.utils.profiling import _read_back
+
 logger = logging.getLogger(__name__)
 
 __all__ = ["pipelined_traverse", "HostScoringBridge"]
@@ -154,8 +156,10 @@ def pipelined_traverse(
             while len(inflight) < max(pipeline_depth, 1):
                 t0 = time.perf_counter()
                 state, out = expand(state)
-                to_score = out["to_score"].cpu().numpy()
-                exp_valid = out["exp_valid"].cpu().numpy()
+                with _read_back("download"):
+                    to_score = out["to_score"].cpu().numpy()
+                with _read_back("download"):
+                    exp_valid = out["exp_valid"].cpu().numpy()
                 stats["device_time"] += time.perf_counter() - t0
                 if not exp_valid.any():
                     expanded_empty = True

@@ -1,25 +1,61 @@
 """Profiling helpers: a ``torch.profiler`` trace of any region, the
-device-kernel time per kernel name in such a trace, and a named timer.
+device-kernel time per kernel name in such a trace, a named timer, and the
+program's own spans and counters.
 
-The counterparts of :mod:`rad_tpu.utils.profiling`. Not to be confused
-with :mod:`rad_tpu_torch.profiling`, the entry point that profiles the 1M
-build and traversal step.
+The first three are the counterparts of :mod:`rad_tpu.utils.profiling`.
+Not to be confused with :mod:`rad_tpu_torch.profiling`, the entry point
+that profiles the 1M build and traversal step.
 
     with profile_trace("trace/"):
         run()
     per_kernel_ns, n_events = aggregate_device_ops("trace/")
+
+Spans and counters are off unless a :func:`recording` block is open:
+
+    with recording() as rec, torch.profiler.profile(...) as prof:
+        fused_run(...)
+    rec.counters    # {"step": 35, "sync.loop": 36, ...}
+
+Inside the block, :func:`span` opens a ``torch.profiler.record_function``
+named ``rad.<name>``, so under a profiler it lies on the same clock as the
+kernels it launches and nests in the span around it; :func:`count` adds to
+``rec.counters``. Outside it both return at once. The program records:
+
+- the traversal step (:mod:`rad_tpu_torch.traverse.device`): span
+  ``step``, each pass of the device-scored loop, from its loop read to
+  the end of its integrate; ``step.expand``, ``step.score`` and
+  ``step.integrate`` inside it; ``step.refill`` (the two-level head's
+  rebuild) and ``step.merge`` (the buffer's merge into the head), the
+  frontier's sorts; counter ``step``, once per ``expand``, from every
+  engine that calls it (the device loop, ``DeviceTraverser``, the pod);
+- every host read-back of device state on the step path, as span and
+  counter ``sync.<site>`` (the span holds the read and the few
+  operations that compute what it reads): ``loop`` (the device loop's condition),
+  ``refill_check`` and ``merge_check`` (the two-level refill and the
+  buffer's overflow), ``narrow`` (``narrow_width``'s test) and
+  ``download`` (each of the pipelined driver's two copies of a step's
+  ids to the host). Each stalls the host until the device has run
+  everything launched before it;
+- the exact build (:mod:`rad_tpu_torch.build.exact`): spans
+  ``build.candidates``, ``build.selection`` and ``build.symmetrization``
+  (the last with the host's read of the rows) around the stages that
+  ``stage_times`` times, once a stage for each scanned layer; on a probed
+  layer selection streams into the scan, so ``build.selection`` nests
+  inside ``build.candidates``, once for each group of query blocks.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import glob
 import json
 import os
 import time
 from typing import Dict, Iterator, Tuple
 
-__all__ = ["profile_trace", "Timer", "aggregate_device_ops"]
+__all__ = ["profile_trace", "Timer", "aggregate_device_ops", "recording",
+           "span", "count"]
 
 # the Chrome-trace categories of device work in a torch.profiler dump
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -96,3 +132,62 @@ class Timer:
             }
             for name in self.totals
         }
+
+
+class Recording:
+    """What one :func:`recording` block counted: ``counters``, a plain
+    ``{name: int}``."""
+
+    def __init__(self) -> None:
+        self.counters: Dict[str, int] = {}
+
+
+# the span while recording is off: one object, entered and left again
+_NULL_SPAN = contextlib.nullcontext()
+# the open recording of this thread (or task), None while recording is off
+_RECORDING: contextvars.ContextVar = contextvars.ContextVar(
+    "rad_tpu_torch_recording", default=None)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Recording]:
+    """Turn the program's spans and counters on for the block (in this
+    thread) and yield the :class:`Recording` whose ``counters`` they fill.
+    A block nested in an open one yields the open one."""
+    open_rec = _RECORDING.get()
+    if open_rec is not None:
+        yield open_rec
+        return
+    rec = Recording()
+    token = _RECORDING.set(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDING.reset(token)
+
+
+def span(name: str):
+    """A context for the span ``rad.<name>``: a
+    ``torch.profiler.record_function`` while recording, else one shared
+    object that does nothing (no torch call, no allocation)."""
+    if _RECORDING.get() is None:
+        return _NULL_SPAN
+    from torch.profiler import record_function
+    return record_function("rad." + name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the open recording's counter ``name``; nothing while
+    recording is off."""
+    rec = _RECORDING.get()
+    if rec is None:
+        return
+    rec.counters[name] = rec.counters.get(name, 0) + n
+
+
+def _read_back(site: str):
+    """The span around a host read of device state at ``site`` (counted as
+    ``sync.<site>``): every such read on the traversal step's path goes
+    through here."""
+    count("sync." + site)
+    return span("sync." + site)
