@@ -355,6 +355,14 @@ KERNELS = {
         wrapper=kernels.tanimoto_bucketmin, counter="approx_launches",
         source="rad_tpu_torch/csrc/tanimoto.cu",
         replaces="rad_tpu/fp/kernels.py:209"),
+    "tanimoto_bucket_topk": dict(
+        wrapper=kernels.tanimoto_bucket_topk,
+        source="rad_tpu_torch/csrc/tanimoto.cu",
+        replaces="none: rad_tpu/build/exact.py's host merge loop"),
+    "tanimoto_bucket_topk_approx": dict(
+        wrapper=kernels.tanimoto_bucket_topk, counter="approx_launches",
+        source="rad_tpu_torch/csrc/tanimoto.cu",
+        replaces="none: rad_tpu/build/exact.py's host merge loop"),
     "tanimoto_matrix": dict(
         wrapper=kernels.tanimoto_matrix,
         source="rad_tpu_torch/csrc/tanimoto.cu",
@@ -530,6 +538,8 @@ def phase_device() -> str:
             print(f"    ptxas: {line.strip()}")
     found = {"tanimoto_nn_kernel": 0, "tanimoto_nn_wide_kernel": 0,
              "tanimoto_matrix_kernel": 0, "tanimoto_bucketmin_kernel": 0,
+             "tanimoto_bucket_topk_kernel": 0,
+             "tanimoto_bucket_topk_merge_kernel": 0,
              "candidate_filter_kernel": 0, "integrate_candidates_kernel": 0,
              "scalar_gather_kernel": 0, "scalar_checkset_kernel": 0,
              "scalar_chain_kernel": 0}
@@ -544,6 +554,8 @@ def phase_device() -> str:
         check(spill == 0, f"{name} spills {spill} bytes")
     want = {"tanimoto_nn_kernel": 5, "tanimoto_nn_wide_kernel": 7,
             "tanimoto_matrix_kernel": 2, "tanimoto_bucketmin_kernel": 3,
+            "tanimoto_bucket_topk_kernel": 8,
+            "tanimoto_bucket_topk_merge_kernel": 1,
             "candidate_filter_kernel": 2, "integrate_candidates_kernel": 2,
             "scalar_gather_kernel": 2, "scalar_checkset_kernel": 4,
             "scalar_chain_kernel": 4}
@@ -646,6 +658,54 @@ def phase_kernels(dev) -> dict:
           f"chosen entries' true distances within {chosen:.3g} (bound "
           f"1e-6), {int((gid != pgid).sum())} of {gid.numel()} winners "
           f"differ; {_fmt(r)}", flush=True)
+
+    # the exact build's candidate scan: a q-block of a 65,536-row layer
+    # (split columns and a merge) and the whole layer in one launch (as the
+    # build scans a layer), rows past n_real holding fingerprints; the
+    # approx epilogue is held to the card's column-block loop (the twin's
+    # f32 reciprocal is not rcp.approx); the q-block is timed against the
+    # twin
+    lay = to_torch_packed(random_fingerprints(65536, 1024, 0.12, seed=3), dev)
+    lay[1::97] = lay[0]
+    lp = popcount_rows(lay)
+    n_real = 65536 - 1000
+    for approx in (False, True):
+        name = "tanimoto_bucket_topk" + ("_approx" if approx else "")
+
+        def scan(q1=4096, approx=approx):
+            return kernels.tanimoto_bucket_topk(lay, 0, q1, n_real, 64, 64,
+                                                pops=lp, approx=approx)
+
+        def twin(q1=4096, approx=approx):
+            return kernels.tanimoto_bucket_topk_plain(
+                lay, 0, q1, n_real, 64, 64, pops=lp, approx=approx)
+
+        def held_to(q1):
+            if not approx:
+                return twin(q1)
+            blocks = [exact._one_qblock_loop(lay, lp, b0, n_real, 64, 4096,
+                                             8192, 64, True)
+                      for b0 in range(0, q1, 4096)]
+            return (torch.cat([b[0] for b in blocks]),
+                    torch.cat([b[1] for b in blocks]))
+
+        for q1 in (4096, 65536):
+            (d, i) = scan(q1)
+            torch.cuda.synchronize()
+            wd, wi = held_to(q1)
+            check(torch.equal(d.view(torch.int32), wd.view(torch.int32))
+                  and torch.equal(i, wi),
+                  f"{name} of rows [0, {q1}) differs from "
+                  f"{'the loop' if approx else 'its twin'}")
+        ms, plain_ms = _turns(scan, twin)
+        results[name] = r = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+            library_ms=_library_ms(lay[:4096], lay), graph_ms=None,
+            **_tanimoto_bound(4096, 65536, 32, 4096 * 64 * 8))
+        held = "the card's loop" if approx else "the plain twin"
+        print(f"[2 kernels] {name} 4096x65536 k 64 bucket 64: array-equal "
+              f"to {held}, and so is the whole 65536-row layer in one "
+              f"launch; {_fmt(r)}", flush=True)
     _bucket_shapes(dev)
 
     q = to_torch_packed(random_fingerprints(8192, 1024, 0.12, seed=3), dev)
@@ -1265,7 +1325,8 @@ def phase_main_path(dev, n: int, n_to_score: int) -> dict:
         mols = traverser.get_molecules()
         dev_stats = traverser.get_traversal_stats()["device"]
         traverser.shutdown()
-        launches = _counts("tanimoto_bucketmin", "tanimoto_matrix")
+        launches = _counts("tanimoto_bucket_topk", "tanimoto_bucketmin",
+                           "tanimoto_matrix")
         graph = loaded.graph
         context = dict(
             dg=tdev.prepare_device_graph(graph, dev),
@@ -1277,8 +1338,11 @@ def phase_main_path(dev, n: int, n_to_score: int) -> dict:
             library=packed, graph=graph, stage=stage, index=loaded,
             scoring_fn=scoring_fn, store=store)
 
-    for name, count in launches.items():
-        check(count > 0, f"{name} never launched on the main path")
+    for name in ("tanimoto_bucket_topk", "tanimoto_matrix"):
+        check(launches[name] > 0, f"{name} never launched on the main path")
+    check(launches["tanimoto_bucketmin"] == 0, "the exact build launched "
+          "the bucket kernel outside the bucket top-k")
+    scan_ms = _layer_scan(dev, packed)
     n_scored = stats["n_scored"]
     check(n_scored >= n_to_score, f"n_scored {n_scored} < {n_to_score}")
     ids = np.array([m[0] for m in mols])
@@ -1298,7 +1362,11 @@ def phase_main_path(dev, n: int, n_to_score: int) -> dict:
           f"library {t_lib:.1f} s; build {t_build:.2f} s (candidates "
           f"{stage['candidates']:.2f} s, selection {stage['selection']:.2f}"
           f" s, symmetrization {stage['symmetrization']:.2f} s); save+load "
-          f"{t_io:.2f} s", flush=True)
+          f"{t_io:.2f} s; the scan of a whole "
+          f"{exact._round_up(n, 8192):,}-row layer in one launch "
+          f"{scan_ms:.1f} ms, its first and last 4,096 "
+          f"rows and its first q-block's split scan array-equal to the "
+          f"plain twin", flush=True)
     print(f"[4 main path] prime+traverse+best: {t_trav:.2f} s, {n_scored:,} "
           f"scored ({n_scored / t_trav:,.0f} scored/s, {dev_stats['steps']} "
           f"steps, host scoring {dev_stats['scoring_time']:.2f} s, device "
@@ -1307,6 +1375,34 @@ def phase_main_path(dev, n: int, n_to_score: int) -> dict:
           f"top-100 found {found} ({found / max(random_expect, 1e-9):.1f}x "
           f"random); launches {launches}", flush=True)
     return launches, context
+
+
+def _layer_scan(dev, packed: np.ndarray) -> float:
+    """The build's candidate scan of ``packed`` as one zero-padded layer, as
+    the build launches it (one launch, k 64, bucket 64): its first and last
+    4,096 rows, and its first q-block scanned alone (split columns and a
+    merge), held to the plain twin. Returns the launch's milliseconds."""
+    n = packed.shape[0]
+    n_pad = exact._round_up(n, 8192)
+    lay = torch.zeros((n_pad, packed.shape[1]), dtype=torch.int32,
+                      device=dev)
+    lay[:n] = to_torch_packed(packed, dev)
+    lp = popcount_rows(lay)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d, i = kernels.tanimoto_bucket_topk(lay, 0, n_pad, n, 64, 64, pops=lp)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    qd, qi = kernels.tanimoto_bucket_topk(lay, 0, 4096, n, 64, 64, pops=lp)
+    for q0, got in ((0, (d[:4096], i[:4096])), (0, (qd, qi)),
+                    (n_pad - 4096, (d[-4096:], i[-4096:]))):
+        pd, pi = kernels.tanimoto_bucket_topk_plain(lay, q0, q0 + 4096, n, 64,
+                                                    64, pops=lp)
+        check(torch.equal(got[0].view(torch.int32), pd.view(torch.int32))
+              and torch.equal(got[1], pi), f"4: the scan of rows [{q0}, "
+              f"{q0 + 4096}) of the {n_pad:,}-row layer differs from the "
+              f"plain twin")
+    return ms
 
 
 def _reset_counts() -> None:
@@ -1629,11 +1725,14 @@ def phase_approx_1m(dev, ctx: dict) -> dict:
     stage = {}
     g = build_hnsw_exact(ctx["library"], connectivity=16, seed=0,
                          device=dev, bucket_approx=True, stage_times=stage)
-    launches = _counts("tanimoto_bucketmin_approx", "tanimoto_bucketmin")
-    check(launches["tanimoto_bucketmin_approx"] > 0,
+    launches = _counts("tanimoto_bucket_topk_approx", "tanimoto_bucket_topk",
+                       "tanimoto_bucketmin_approx")
+    check(launches["tanimoto_bucket_topk_approx"] > 0,
           "the approximate bucket epilogue never launched")
-    check(launches["tanimoto_bucketmin"] == 0,
+    check(launches["tanimoto_bucket_topk"] == 0,
           "the exact bucket epilogue ran in the bucket_approx build")
+    check(launches["tanimoto_bucketmin_approx"] == 0, "the bucket_approx "
+          "build launched the bucket kernel outside the bucket top-k")
     ref = np.asarray(ctx["graph"].neighbors[0])
     check(g.layer_sizes == ctx["graph"].layer_sizes, "layer sizes differ")
     same = float(np.mean(g.neighbors[0] == ref))
@@ -1645,7 +1744,8 @@ def phase_approx_1m(dev, ctx: dict) -> dict:
     check(same >= 0.99, f"bucket_approx build: {100 * same:.3f} % of "
           f"layer-0 slots equal the exact-epilogue graph (< 99 %)")
     # the exact epilogue's count stays phase 4's
-    return {"tanimoto_bucketmin_approx": launches["tanimoto_bucketmin_approx"]}
+    return {name: launches[name] for name in (
+        "tanimoto_bucket_topk_approx", "tanimoto_bucketmin_approx")}
 
 
 def phase_probed_parity(dev) -> None:
@@ -2161,7 +2261,7 @@ def phase_engine_variants(dev, ctx: dict) -> dict:
 # alone (leaves: none calls another of them)
 PEAK_STEPS = ((probe, "bisect_clusters", "bisection"),
               (exact, "_one_qblock_probed", "probed scan"),
-              (exact, "_one_qblock", "exact scan"),
+              (exact, "_scan", "exact scan"),
               (exact, "_select_neighbors", "selection"),
               (exact, "_dist_rows", "selected distances"),
               (exact, "_symmetrize", "symmetrization"))
@@ -2506,7 +2606,7 @@ def _partitioned(dev, lib: np.ndarray, ctx: dict) -> None:
     t0 = time.perf_counter()
     g = build_hnsw_partitioned(base, device=dev, stage_times=stage, **kw)
     t_build = time.perf_counter() - t0
-    launches = _counts("tanimoto_bucketmin", "tanimoto_matrix")
+    launches = _counts("tanimoto_bucket_topk", "tanimoto_matrix")
     _check_graph(g)
     for name, count in launches.items():
         check(count > 0, f"{name} never launched in the partitioned build")
@@ -2627,7 +2727,7 @@ def _cli_build(dev, ctx: dict, tmp: str) -> str:
     finally:
         log.removeHandler(rec)
     t_cli = time.perf_counter() - t0
-    launches = _counts("tanimoto_bucketmin", "tanimoto_matrix")
+    launches = _counts("tanimoto_bucket_topk", "tanimoto_matrix")
     check(rc == 0, f"11a: build_index exited {rc}")
     check(os.path.exists(prefix + ".npz") and os.path.exists(prefix + ".db"),
           "11a: lib.npz or lib.db missing")
@@ -2937,7 +3037,7 @@ def phase_chemistry(dev) -> None:
     index.add(np.arange(CHEM_N), fps)
     index.build()
     t_build = time.perf_counter() - t0
-    launches = _counts("tanimoto_bucketmin", "tanimoto_matrix")
+    launches = _counts("tanimoto_bucket_topk", "tanimoto_matrix")
     for name, count in launches.items():
         check(count > 0, f"12: {name} never launched in the build")
     with tempfile.TemporaryDirectory() as tmp:
@@ -3024,7 +3124,7 @@ def phase_sweeps(dev, ctx10: dict) -> None:
                       "128", "--builder", "exact", "--device", str(dev)],
                      result=res)
     t_recall = time.perf_counter() - t0
-    launches = _counts("tanimoto_bucketmin", "tanimoto_matrix")
+    launches = _counts("tanimoto_bucket_topk", "tanimoto_matrix")
     check(rec["builder"] == "exact" and [r["ef"] for r in rec["results"]]
           == [32, 128], f"13a: unexpected record {rec}")
     r128 = rec["results"][1]["recall"]
@@ -3188,12 +3288,12 @@ def _pod_build(dev, ctx: dict, mesh) -> dict:
                          seed=ctx["index"].seed, mesh=mesh,
                          stage_times=stage)
     dt = time.perf_counter() - t0
-    launches = _counts("tanimoto_matrix", "tanimoto_bucketmin")
+    launches = _counts("tanimoto_matrix", "tanimoto_bucket_topk")
     peak = torch.cuda.max_memory_allocated() - base
     check(_same_graph(g, ctx["graph"]), "15a: the mesh build is not "
           "edge-identical to phase 4's graph")
-    check(launches["tanimoto_bucketmin"] > 0, "15a: the bucket kernel never "
-          "launched on the sharded build")
+    check(launches["tanimoto_bucket_topk"] > 0, "15a: the bucket top-k "
+          "never launched on the sharded build")
     s4 = ctx["stage"]
     print(f"[15a pod build] {N:,} x 1024-bit on {POD_D} shards: {dt:.2f} s "
           f"(candidates {stage['candidates']:.2f} s, selection "
@@ -3605,7 +3705,7 @@ def phase_pod(dev, ctx: dict) -> dict:
     sg = ctx15.pop("sg")
     _pod_multi(dev, ctx, mesh, sg)
     for k, v in _pod_search(dev, ctx, mesh, sg).items():
-        launches[k] += v
+        launches[k] = launches.get(k, 0) + v
     del sg
     _pod_stream(dev, mesh)
     _pod_multihost(dev, ctx, ctx15)
@@ -3731,9 +3831,11 @@ def _native_partitioned(dev, base: np.ndarray, q, truth) -> None:
                                expansion_add=128, seed=0, builder="auto",
                                device=dev, stage_times=stage)
     t_build = time.perf_counter() - t0
-    launches = _counts("tanimoto_bucketmin", "tanimoto_matrix")
+    launches = _counts("tanimoto_bucketmin", "tanimoto_bucket_topk",
+                       "tanimoto_matrix")
     _check_graph(g)
-    check(launches["tanimoto_bucketmin"] == 0, f"16e: an exact shard "
+    check(launches["tanimoto_bucketmin"] == 0
+          and launches["tanimoto_bucket_topk"] == 0, f"16e: an exact shard "
           f"build ran ({launches})")
     _, found = HNSWIndex.from_graph(g, device=dev).search(
         q, k=10, expansion_search=64)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -65,6 +66,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rad_tanimoto_bucketmin.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci,
                                            ci, vp, vp]
     lib.rad_tanimoto_bucketmin.restype = ci
+    lib.rad_tanimoto_bucket_topk.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci,
+                                             ci, ci, ci, vp, vp, vp, vp]
+    lib.rad_tanimoto_bucket_topk.restype = ci
+    lib.rad_bucket_topk_max_words.argtypes = [ci, ci]
+    lib.rad_bucket_topk_max_words.restype = ci
     lib.rad_tanimoto_nn.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci, ci, vp,
                                     vp]
     lib.rad_tanimoto_nn.restype = ci
@@ -181,10 +187,9 @@ def kernel_resources(log: str | None = None) -> dict:
             out.setdefault(name, {}).update(
                 spill_stores=int(fields[fields.index("spill") - 2]),
                 spill_loads=int(fields[-4]))
-        elif entry and line.startswith("ptxas info") and " registers" in line:
-            fields = line.split()
-            out.setdefault(entry, {})["registers"] = int(
-                fields[fields.index("registers,") - 1])
+        elif entry and line.startswith("ptxas info") and (
+                used := re.search(r"Used (\d+) registers", line)):
+            out.setdefault(entry, {})["registers"] = int(used.group(1))
     return out
 
 

@@ -5,13 +5,19 @@ edge-identical to it:
 
 1. sample all levels up front and order nodes level-descending;
 2. per layer (top -> 0): top-K candidates among the layer's nodes —
-   big layers through :func:`~rad_tpu_torch.fp.kernels.tanimoto_bucketmin`
-   (one winner per ``block_bucket`` columns, so a query's self bucket
-   loses its runner-up, exactly as in the reference), small layers through
+   big layers through the bucket reduction (one winner per
+   ``block_bucket`` columns, so a query's self bucket loses its runner-up,
+   exactly as in the reference): :func:`~rad_tpu_torch.fp.kernels.
+   tanimoto_bucket_topk` keeps each row's running top-K on the card, one
+   launch a layer (the reference's loop over column blocks with one stable
+   sort per block stays for buckets under 8 columns, and on the card for K
+   past the kernel's instances or rows too wide for it); small layers
+   through
    :func:`~rad_tpu_torch.fp.kernels.tanimoto_matrix` and an exact stable
-   top-K; a running top-K merge with one stable sort per block. The
+   top-K, merged block by block. The
    candidates are exact over all columns, or, with ``probes=``, over the
-   layer's cluster-probed subset (:mod:`rad_tpu_torch.build.probe`);
+   layer's cluster-probed subset (:mod:`rad_tpu_torch.build.probe`, whose
+   loop keeps :func:`~rad_tpu_torch.fp.kernels.tanimoto_bucketmin`);
 3. the vectorized diversity heuristic over the candidate lists;
 4. symmetrization: forward + reverse edges sorted by (destination,
    distance, source); each row keeps its distance-best ``cap`` entrants.
@@ -40,11 +46,13 @@ import torch
 from rad_tpu_torch.build.device import _dist_rows, _select_neighbors
 from rad_tpu_torch.build.reference import sample_levels
 from rad_tpu_torch.devices import resolve_device
-from rad_tpu_torch.fp.kernels import (decode_bucket_keys, tanimoto_bucketmin,
-                                      tanimoto_matrix)
+from rad_tpu_torch.fp.kernels import (bucket_topk_serves,
+                                      decode_bucket_keys,
+                                      tanimoto_bucket_topk,
+                                      tanimoto_bucketmin, tanimoto_matrix)
 from rad_tpu_torch.fp.pack import popcount_rows_np
 from rad_tpu_torch.graph.storage import HNSWGraph
-from rad_tpu_torch.utils.profiling import span
+from rad_tpu_torch.utils.profiling import count, span
 
 logger = logging.getLogger(__name__)
 
@@ -77,20 +85,44 @@ def _allpairs_topk(packed, pops, n_real: int, k: int, q_block: int,
     k]`` f32 / int32, ascending, INF/-1 tails; padded query rows are junk.
     ``approx`` runs the bucket kernel's approximate-reciprocal epilogue.
     """
-    n_pad = packed.shape[0]
+    return _scan(packed, pops, 0, packed.shape[0], n_real, k, q_block,
+                 col_block, bucket, approx)
+
+
+def _scan(packed, pops, q0: int, q1: int, n_real: int, k: int, q_block: int,
+          col_block: int, bucket: int | None, approx: bool):
+    """Top-k (dists, ids) of query rows ``[q0, q1)`` against every column
+    (the reference's ``_make_one_qblock``, q-block by q-block): a bucket
+    scan in one :func:`tanimoto_bucket_topk` call where it serves
+    (buckets of 8 columns or more; on the card, ``k`` and the row width
+    within the kernel's instances), else :func:`_one_qblock_loop` q-block
+    by q-block. A bucket scan counts the path it took, once a call:
+    ``build.bucket_topk`` or ``build.bucket_loop``."""
+    if bucket is not None:
+        if bucket >= 8 and bucket_topk_serves(packed, k, bucket):
+            count("build.bucket_topk")
+            return tanimoto_bucket_topk(packed, q0, q1, n_real, k, bucket,
+                                        pops=pops, approx=approx)
+        count("build.bucket_loop")
+    if q1 - q0 == q_block:
+        return _one_qblock_loop(packed, pops, q0, n_real, k, q_block,
+                                col_block, bucket, approx)
     dev = packed.device
-    out_d = torch.empty((n_pad, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((n_pad, k), dtype=torch.int32, device=dev)
-    for q0 in range(0, n_pad, q_block):
-        out_d[q0:q0 + q_block], out_i[q0:q0 + q_block] = _one_qblock(
-            packed, pops, q0, n_real, k, q_block, col_block, bucket, approx)
+    out_d = torch.empty((q1 - q0, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q1 - q0, k), dtype=torch.int32, device=dev)
+    for b0 in range(q0, q1, q_block):
+        out_d[b0 - q0:b0 - q0 + q_block], out_i[b0 - q0:b0 - q0 + q_block] = \
+            _one_qblock_loop(packed, pops, b0, n_real, k, q_block, col_block,
+                             bucket, approx)
     return out_d, out_i
 
 
-def _one_qblock(packed, pops, q0: int, n_real: int, k: int, q_block: int,
-                col_block: int, bucket: int | None, approx: bool):
-    """Top-k (dists, ids) of query rows ``[q0, q0 + q_block)`` against
-    every column block (the reference's ``_make_one_qblock``)."""
+def _one_qblock_loop(packed, pops, q0: int, n_real: int, k: int,
+                     q_block: int, col_block: int, bucket: int | None,
+                     approx: bool):
+    """:func:`_scan` of one q-block, column block by column block: each
+    block's bucket winners (or matrix top-k) merged into the running top-k
+    by one stable sort."""
     n_pad = packed.shape[0]
     dev = packed.device
     col_ids = torch.arange(col_block, dtype=torch.int32, device=dev)

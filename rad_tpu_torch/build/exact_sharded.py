@@ -6,12 +6,11 @@ through these stages and builds the same graph, edge for edge, as the
 single-device build:
 
 * candidates — q-blocks are independent, so shard ``i`` runs the
-  single-device q-block body (:func:`rad_tpu_torch.build.exact.
-  _one_qblock`: the bucket kernel on big layers) over its own contiguous
-  span of q-blocks against the replicated fingerprints; the candidate
-  tables come out split by rows. Probed layers scan each shard's span of
-  permuted q-blocks and scatter the results to the shards that own the
-  rows;
+  single-device scan (:func:`rad_tpu_torch.build.exact._scan`: one bucket
+  top-k call on big layers) over its own contiguous span of q-blocks
+  against the replicated fingerprints; the candidate tables come out
+  split by rows. Probed layers scan each shard's span of permuted
+  q-blocks and scatter the results to the shards that own the rows;
 * selection — rows are independent; each shard selects for its own rows;
 * symmetrization — the one global stage: a directed selection (i → j, d)
   must reach row i's and row j's incident-edge tables. Each shard folds
@@ -39,7 +38,7 @@ import numpy as np
 import torch
 
 from rad_tpu_torch.build.device import _dist_rows, _select_neighbors
-from rad_tpu_torch.build.exact import INF, _one_qblock, _one_qblock_probed
+from rad_tpu_torch.build.exact import INF, _one_qblock_probed, _scan
 from rad_tpu_torch.parallel.collectives import ShardedRows, all_to_all
 
 __all__ = ["allpairs_topk_sharded", "probed_topk_sharded",
@@ -85,17 +84,10 @@ def allpairs_topk_sharded(packed, pops, n_real: int, k: int, q_block: int,
                          f"evenly over the {d_mesh}-device '{axis}' axis")
     s = nq // d_mesh
     out_d, out_i = {}, {}
-    for i, device in _axis(mesh, axis):
-        p, pp = packed[i], pops[i]
-        od = torch.empty((s * q_block, k), dtype=torch.float32,
-                         device=device)
-        oi = torch.empty((s * q_block, k), dtype=torch.int32, device=device)
-        for j in range(s):
-            od[j * q_block:(j + 1) * q_block], \
-                oi[j * q_block:(j + 1) * q_block] = _one_qblock(
-                    p, pp, (i * s + j) * q_block, n_real, k, q_block,
-                    col_block, bucket, approx)
-        out_d[i], out_i[i] = od, oi
+    for i, _ in _axis(mesh, axis):
+        out_d[i], out_i[i] = _scan(packed[i], pops[i], i * s * q_block,
+                                   (i + 1) * s * q_block, n_real, k, q_block,
+                                   col_block, bucket, approx)
     size = s * q_block
     return _rows(mesh, axis, out_d, size), _rows(mesh, axis, out_i, size)
 

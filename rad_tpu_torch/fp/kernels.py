@@ -14,6 +14,11 @@ bounds it on an H100):
   ``[Q, N / bucket]``, the orientation the JAX wrapper returns. With
   ``approx=True`` it runs the kernel's approximate-reciprocal epilogue
   instance (the reference's ``approx=True``);
+* :func:`tanimoto_bucket_topk` — the exact builder's candidate scan: the
+  bucket kernel's winners of a layer's query rows against all its rows,
+  masked and merged into each row's running top-k on the card (one launch,
+  or a split scan and a merge); no TPU kernel does this, the reference
+  merges on the host;
 * :func:`tanimoto_nn` — 1-NN per query over the whole db, exact or fast
   epilogue; replaces ``rad_tpu.fp.kernels.tanimoto_nn_pallas``;
 * :func:`nn_floor` and :func:`nn_epilogue_probe` — the A/B probes of
@@ -30,7 +35,8 @@ words (wider rows take the IEEE divide: the same bits).
 Each public wrapper runs its ``*_plain`` twin for CPU tensors only; for a
 CUDA tensor it launches the kernel or raises. ``<wrapper>.launches`` counts
 kernel launches (the twin never counts); the approximate epilogue counts in
-``tanimoto_bucketmin.approx_launches`` and
+``tanimoto_bucketmin.approx_launches``,
+``tanimoto_bucket_topk.approx_launches`` and
 ``tanimoto_nn.approx_launches``, the 1-NN kernel's wide instance also in
 ``tanimoto_nn.wide_launches``.
 
@@ -54,6 +60,9 @@ __all__ = [
     "tanimoto_bucketmin",
     "tanimoto_bucketmin_plain",
     "decode_bucket_keys",
+    "tanimoto_bucket_topk",
+    "tanimoto_bucket_topk_plain",
+    "bucket_topk_serves",
     "tanimoto_nn",
     "tanimoto_nn_plain",
     "default_n_tile",
@@ -265,6 +274,160 @@ def tanimoto_bucketmin(q: torch.Tensor, db: torch.Tensor, bucket: int = 64,
 
 tanimoto_bucketmin.launches = 0
 tanimoto_bucketmin.approx_launches = 0
+
+
+# --- the bucket path's running top-k: tanimoto_bucket_topk -----------------
+# Keys are (order32(d) << 32) | id, so one int64 order is the (d, id) order;
+# rows with fewer than k winners end in _I64.max, decoded as INF / -1.
+_TOPK_MAX_SPLITS = 8                  # the most lists the merge kernel reads
+_TOPK_SCRATCH_BYTES = 16 << 20        # the most a call's splits allocate
+_TOPK_PLAIN_ROWS = 1 << 12            # query rows a step of the twin
+_TOPK_PLAIN_COLS = 1 << 13            # columns a step of the twin
+
+
+def bucket_topk_serves(packed: torch.Tensor, k: int, bucket: int) -> bool:
+    """Whether :func:`tanimoto_bucket_topk` takes ``packed``'s rows at
+    ``k`` and ``bucket``: the twin takes any; the card's kernel takes
+    buckets of 8 columns or more, k up to 256 and rows as wide as its
+    instance keeps resident beside the rows' lists in shared memory
+    (``rad_bucket_topk_max_words`` of ``csrc/tanimoto.cu``)."""
+    if packed.device.type != "cuda":
+        return True
+    from rad_tpu_torch import _cuda
+
+    return packed.shape[1] <= _cuda.load_library().rad_bucket_topk_max_words(
+        k, bucket)
+
+
+def _check_topk(packed, q0: int, q1: int, n_real: int, k: int, bucket: int,
+                pops) -> None:
+    if packed.dim() != 2 or packed.dtype != torch.int32:
+        raise ValueError(f"expected [N, W] int32 packed words, got "
+                         f"{tuple(packed.shape)} {packed.dtype}")
+    n = packed.shape[0]
+    if not 0 <= q0 <= q1 <= n:
+        raise ValueError(f"query rows [{q0}, {q1}) outside the {n} rows")
+    if k < 1 or n_real < 0:
+        raise ValueError(f"k={k} and n_real={n_real} must be positive")
+    _check_bucket(n, bucket)
+    if pops is not None and (pops.dtype != torch.int32
+                             or pops.device != packed.device
+                             or tuple(pops.shape) != (n,)):
+        raise ValueError(f"pops must be int32 [{n}] on {packed.device}")
+
+
+def _topk_keys_plain(packed, pops, q0: int, q1: int, n_real: int, k: int,
+                     bucket: int, approx: bool) -> torch.Tensor:
+    """``[q1 - q0, k]`` int64 keys, ascending: the bucket winners of
+    :func:`tanimoto_bucketmin_plain`, masked, merged into a running k
+    smallest, ``_TOPK_PLAIN_ROWS`` rows by ``_TOPK_PLAIN_COLS`` columns."""
+    n = packed.shape[0]
+    dev = packed.device
+    out = torch.empty((q1 - q0, k), dtype=torch.int64, device=dev)
+    step = max(bucket, _TOPK_PLAIN_COLS)
+    for r0 in range(q0, q1, _TOPK_PLAIN_ROWS):
+        r1 = min(r0 + _TOPK_PLAIN_ROWS, q1)
+        q, qp = packed[r0:r1], pops[r0:r1]
+        rows = torch.arange(r0, r1, dtype=torch.int64, device=dev)[:, None]
+        best = torch.full((r1 - r0, k), _I64.max, dtype=torch.int64,
+                          device=dev)
+        for c0 in range(0, n, step):
+            c1 = min(c0 + step, n)
+            d, col = decode_bucket_keys(tanimoto_bucketmin_plain(
+                q, packed[c0:c1], bucket, qp, pops[c0:c1], approx), bucket)
+            ids = (c0 + col).to(torch.int64)
+            keys = _hi_lo(_order32(d), ids).masked_fill(
+                (ids >= n_real) | (ids == rows), _I64.max)
+            best = torch.cat([best, keys], 1).topk(
+                k, dim=1, largest=False).values
+        out[r0 - q0:r1 - q0] = best
+    return out
+
+
+def _topk_decode(keys: torch.Tensor):
+    """Top-k keys → ``(dist f32, id int32)``, INF / -1 where empty."""
+    d, ids = _decode_min(keys)
+    empty = keys == _I64.max
+    return d.masked_fill(empty, float("inf")), ids.masked_fill(empty, -1)
+
+
+def tanimoto_bucket_topk_plain(packed: torch.Tensor, q0: int, q1: int,
+                               n_real: int, k: int, bucket: int = 64,
+                               pops: torch.Tensor | None = None,
+                               approx: bool = False):
+    """Plain-torch twin of :func:`tanimoto_bucket_topk`, any ``k`` and any
+    row width."""
+    _check_topk(packed, q0, q1, n_real, k, bucket, pops)
+    return _topk_decode(_topk_keys_plain(packed, _pops(packed, pops), q0, q1,
+                                         n_real, k, bucket, approx))
+
+
+def tanimoto_bucket_topk(packed: torch.Tensor, q0: int, q1: int,
+                         n_real: int, k: int, bucket: int = 64,
+                         pops: torch.Tensor | None = None,
+                         approx: bool = False):
+    """The exact builder's candidate scan of query rows ``[q0, q1)`` of a
+    layer's padded rows ``packed`` against all of its rows: ``([q1 - q0,
+    k] f32 distances, [q1 - q0, k] int32 ids)``, ascending, INF / -1
+    tails.
+
+    Every ``bucket`` columns give one winner, :func:`tanimoto_bucketmin`'s
+    (``approx`` its epilogue), dropped if its id is ``n_real`` or more or
+    the query's own; the k smallest by ``(d, id)`` are kept, ``d`` the f32
+    ``1 - sim`` of :func:`decode_bucket_keys`. That is the order of a stable
+    merge of the winners over ascending column blocks, so the result does not
+    depend on how the columns are split. On the card one kernel keeps each
+    row's top-k (two launches when a call's rows alone do not fill the
+    card: a split scan, then a merge) where :func:`bucket_topk_serves`;
+    it raises elsewhere. Counts ``tanimoto_bucket_topk.launches`` /
+    ``.approx_launches`` a call."""
+    _check_topk(packed, q0, q1, n_real, k, bucket, pops)
+    pops = _pops(packed, pops)
+    if packed.device.type == "cpu":
+        return _topk_decode(_topk_keys_plain(packed, pops, q0, q1, n_real, k,
+                                             bucket, approx))
+    if packed.device.type != "cuda":
+        raise ValueError(f"unsupported device {packed.device}")
+    _check_bucket_kernel(bucket)
+    if not bucket_topk_serves(packed, k, bucket):
+        raise ValueError(f"the CUDA bucket top-k takes buckets of 8 columns "
+                         f"or more, k <= 256 and rows of up to "
+                         f"rad_bucket_topk_max_words(k, bucket) words (k={k},"
+                         f" bucket={bucket}, {packed.shape[1]} words)")
+    from rad_tpu_torch import _cuda
+
+    n, n_q = packed.shape[0], q1 - q0
+    dev = packed.device
+    out_d = torch.empty((n_q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n_q, k), dtype=torch.int32, device=dev)
+    if n_q == 0:
+        return out_d, out_i
+    # where the call's rows alone leave SMs idle, the kernel splits the
+    # columns into as many runs as the scratch holds lists, at most
+    splits = max(1, min(_TOPK_MAX_SPLITS,
+                        _TOPK_SCRATCH_BYTES // (n_q * k * 8)))
+    scratch = (torch.empty((splits, n_q, k), dtype=torch.int64, device=dev)
+               if splits > 1 else None)
+    lib = _cuda.load_library()
+    ptr = ctypes.c_void_p
+    with torch.cuda.device(dev):
+        packed, pops = packed.contiguous(), pops.contiguous()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.rad_tanimoto_bucket_topk(
+            ptr(packed.data_ptr()), ptr(pops.data_ptr()), n, packed.shape[1],
+            q0, n_q, min(n_real, n), bucket, int(approx), k, splits,
+            ptr(scratch.data_ptr() if scratch is not None else 0),
+            ptr(out_d.data_ptr()), ptr(out_i.data_ptr()), ptr(stream))
+    _cuda.check(code, "rad_tanimoto_bucket_topk")
+    if approx:
+        tanimoto_bucket_topk.approx_launches += 1
+    else:
+        tanimoto_bucket_topk.launches += 1
+    return out_d, out_i
+
+
+tanimoto_bucket_topk.launches = 0
+tanimoto_bucket_topk.approx_launches = 0
 
 
 def div_counts_mismatches(device, max_union: int = 1 << 16) -> int:

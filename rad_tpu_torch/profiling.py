@@ -46,7 +46,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from rad_tpu_torch.build.exact import (_one_qblock, _round_up,
+from rad_tpu_torch.build.exact import (_round_up, _scan,
                                       _select_layer, build_hnsw_exact)
 from rad_tpu_torch.fp.pack import popcount_rows_np, to_torch_packed
 from rad_tpu_torch.fp.tanimoto import tanimoto_rows_to_target
@@ -130,8 +130,8 @@ def profile_build_blocks(packed: np.ndarray, dev) -> dict:
     k, q_block, col_block, sel_block = 4 * M, 4096, 1 << 13, 2048
 
     def qblock():
-        return _one_qblock(d_packed, d_pops, 0, n, k, q_block, col_block, 64,
-                           approx=False)
+        return _scan(d_packed, d_pops, 0, q_block, n, k, q_block, col_block,
+                     64, approx=False)
 
     qblock()  # warm-up: kernel load, allocator
     (cand_d, cand_i), wall, summary = _profiled(qblock)

@@ -41,7 +41,12 @@ kernels it launches and nests in the span around it; :func:`count` adds to
   (the last with the host's read of the rows) around the stages that
   ``stage_times`` times, once a stage for each scanned layer; on a probed
   layer selection streams into the scan, so ``build.selection`` nests
-  inside ``build.candidates``, once for each group of query blocks.
+  inside ``build.candidates``, once for each group of query blocks;
+  counters ``build.bucket_topk`` and ``build.bucket_loop``, once per
+  bucket scan (a big layer's, or a shard's span of it in the mesh build)
+  by the path it took: the bucket top-k, or the column-block loop
+  (buckets under 8 columns; on the card, k or the row width past the
+  kernel's instances).
 """
 
 from __future__ import annotations

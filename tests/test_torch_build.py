@@ -132,16 +132,120 @@ def test_unported_forms_raise(fps):
         build_hnsw_exact(fps[:64], stream_select="always", device="cpu")
 
 
+def _bucket_layers(graph) -> int:
+    """Layers of a BLOCKS build that take the bucket reduction."""
+    return sum(1 for n in graph.layer_sizes if n >= BLOCKS["q_block"])
+
+
 @pytest.mark.gpu
 def test_cuda_build_equals_cpu_build(fps):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from rad_tpu_torch.fp import kernels
 
-    launches = kernels.tanimoto_bucketmin.launches
+    launches = kernels.tanimoto_bucket_topk.launches
     cpu = build_hnsw_exact(fps, connectivity=8, seed=1, block_bucket=16,
                            device="cpu", **BLOCKS)
     gpu = build_hnsw_exact(fps, connectivity=8, seed=1, block_bucket=16,
                            device="cuda", **BLOCKS)
     _assert_same_graph(cpu, gpu, "cuda vs cpu")
-    assert kernels.tanimoto_bucketmin.launches > launches
+    # one launch of the fused scan a bucket layer
+    assert kernels.tanimoto_bucket_topk.launches == (
+        launches + _bucket_layers(cpu))
+
+
+# --- the bucket scan's running top-k against the column-block merge ------
+TOPK_N = 2048
+
+
+def _topk_library(kind: str) -> np.ndarray:
+    """2,048 rows of 256 bits: random, tie-heavy (exact duplicates; a
+    quarter all-zero rows) or a mutation tree at density 0.12."""
+    if kind == "tree":
+        from rad_tpu_torch.synthetic import make_library
+        return make_library(TOPK_N, 256, seed=4)[0]
+    f = random_fingerprints(TOPK_N, n_bits=256, density=0.15, seed=5)
+    if kind == "duplicates":
+        f[1::3] = f[0]
+        f[2::5] = f[7]
+    elif kind == "zeros":
+        f[::4] = 0
+    return f
+
+
+@pytest.mark.parametrize("kind", ["random", "duplicates", "zeros", "tree"])
+@pytest.mark.parametrize("k,bucket", [(32, 16), (64, 64), (128, 8),
+                                      (32, 1), (64, 4)])
+@pytest.mark.parametrize("approx", [False, True])
+def test_bucket_topk_twin_equals_column_block_merge(kind, k, bucket,
+                                                    approx):
+    """The fused scan's twin, array-equal (distance bits and ids) to the
+    per-column-block loop of stable merges at several column blocks: the
+    (d, id) order, the self bucket and the boundary buckets that lose
+    their runner-up to rows past ``n_real`` (which hold fingerprints of
+    non-members, as on upper layers)."""
+    from rad_tpu_torch.fp import kernels
+    from rad_tpu_torch.fp.pack import popcount_rows, to_torch_packed
+
+    p = to_torch_packed(_topk_library(kind), "cpu")
+    pops = popcount_rows(p)
+    for n_real, (q0, q1) in ((TOPK_N, (0, 512)),
+                             (TOPK_N - 301, (1536, 2048))):
+        d, i = kernels.tanimoto_bucket_topk_plain(p, q0, q1, n_real, k,
+                                                  bucket, pops=pops,
+                                                  approx=approx)
+        assert d.shape == i.shape == (q1 - q0, k)
+        for col_block in (max(bucket, 128), 512, TOPK_N):
+            ld, li = exact._one_qblock_loop(p, pops, q0, n_real, k, q1 - q0,
+                                            col_block, bucket, approx)
+            what = f"{kind} n_real={n_real} col_block={col_block}"
+            np.testing.assert_array_equal(d.view(torch.int32).numpy(),
+                                          ld.view(torch.int32).numpy(),
+                                          err_msg=what)
+            np.testing.assert_array_equal(i.numpy(), li.numpy(),
+                                          err_msg=what)
+
+
+@pytest.mark.parametrize("bucket,candidates,counter", [
+    (16, None, "build.bucket_topk"), (16, 300, "build.bucket_topk"),
+    (4, None, "build.bucket_loop")])
+def test_bucket_topk_takes_the_builds_bucket_layers(fps, bucket, candidates,
+                                                    counter):
+    """The counters that say which path each big layer took: the fused
+    scan (here its twin, which serves any k) for buckets of 8 columns or
+    more, ``build.bucket_loop`` below, with the same graph either way as
+    rad_tpu."""
+    from rad_tpu_torch.utils.profiling import recording
+
+    kw = dict(connectivity=8, seed=3, block_bucket=bucket, **BLOCKS)
+    with recording() as rec:
+        port = build_hnsw_exact(fps, candidates=candidates, device="cpu",
+                                **kw)
+    assert rec.counters == {counter: _bucket_layers(port)}
+    ref = ref_exact.build_hnsw_exact(fps, candidates=candidates,
+                                     use_pallas=True, interpret=True, **kw)
+    _assert_same_graph(ref, port, f"bucket={bucket} candidates={candidates}")
+
+
+@pytest.mark.gpu
+def test_cuda_build_past_the_largest_k_takes_the_loop(fps):
+    """A bucket layer with k above the kernel's largest instance takes the
+    column-block loop on the card (the bucket kernel, no fused scan) and
+    builds the CPU build's graph."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rad_tpu_torch.fp import kernels
+    from rad_tpu_torch.utils.profiling import recording
+
+    kw = dict(connectivity=8, seed=1, block_bucket=16, candidates=300,
+              **BLOCKS)
+    before = (kernels.tanimoto_bucket_topk.launches,
+              kernels.tanimoto_bucketmin.launches)
+    cpu = build_hnsw_exact(fps, device="cpu", **kw)
+    with recording() as rec:
+        gpu = build_hnsw_exact(fps, device="cuda", **kw)
+    _assert_same_graph(cpu, gpu, "k=300 cuda vs cpu")
+    assert rec.counters.get("build.bucket_loop") == _bucket_layers(cpu)
+    assert "build.bucket_topk" not in rec.counters
+    assert kernels.tanimoto_bucket_topk.launches == before[0]
+    assert kernels.tanimoto_bucketmin.launches > before[1]

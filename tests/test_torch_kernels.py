@@ -423,3 +423,101 @@ def test_cuda_bucket_approx_within_twin_bounds(cuda, n_bits, nq, nn):
         diff = (true.gather(1, gid.long()) - true.gather(1, pgid.long()))
         assert float(diff.abs().max()) <= 1e-6, bucket
     assert kernels.tanimoto_bucketmin.approx_launches == before + 2
+
+
+# The bucket top-k's cases: a layer of N rows (copies of the first query
+# row planted, an empty and an all-ones row), query rows [q0, q1) of it off
+# the 128-row tiles, rows past n_real that hold fingerprints, each instance
+# of k (and k between instances), buckets that the kernel takes apart
+# differently, rows up to the widest each instance keeps resident.
+TOPK_KS = (1, 20, 32, 64, 100, 128, 200, 256)
+TOPK_CASES = [  # (w, n, bucket)
+    (1, 192, 8), (6, 640, 32), (8, 1000, 8), (32, 1536, 16), (3, 384, 128),
+    (32, 4096, 64), (32, 2048, 128)]
+
+
+def _topk_layer(n, w, seed=0):
+    q, db = ragged_case(n // 2, n - n // 2, w, seed)
+    return np.concatenate([q, db])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", TOPK_KS)
+@pytest.mark.parametrize("approx", [False, True])
+def test_cuda_bucket_topk_equals_twin(cuda, k, approx):
+    """Every instance of k, both epilogues: distances (bits) and ids
+    array-equal to the twin (exact), or to the builder's column-block loop
+    over the card's bucket kernel (approx: the twin's f32 reciprocal is
+    not the card's ``rcp.approx``), whole layers and ragged query ranges,
+    one launch a call; the widest resident rows of each instance; no
+    bucket under 8 columns."""
+    from rad_tpu_torch import _cuda
+    from rad_tpu_torch.build import exact
+
+    lib = _cuda.load_library()
+    assert [lib.rad_bucket_topk_max_words(k, b) for b in (1, 2, 4)] == [0] * 3
+    widest = lib.rad_bucket_topk_max_words(k, 64)
+    assert widest >= 32 and widest % 32 == 0
+    assert lib.rad_bucket_topk_max_words(k, 8) == widest
+    counter = "approx_launches" if approx else "launches"
+    before = getattr(kernels.tanimoto_bucket_topk, counter)
+    calls = 0
+    for w, n, bucket in TOPK_CASES + [(widest, 1024, 32)]:
+        if w > widest:
+            continue
+        p = to_torch_packed(_topk_layer(n, w), cuda)
+        pops = popcount_rows(p)
+        for q0, q1, n_real in ((0, n, n), (5, n - 130, n - 77)):
+            d, i = kernels.tanimoto_bucket_topk(p, q0, q1, n_real, k, bucket,
+                                                pops=pops, approx=approx)
+            torch.cuda.synchronize()
+            if approx:
+                pd, pi = exact._one_qblock_loop(p, pops, q0, n_real, k,
+                                                q1 - q0, max(bucket, 256),
+                                                bucket, True)
+            else:
+                pd, pi = kernels.tanimoto_bucket_topk_plain(
+                    p, q0, q1, n_real, k, bucket, pops=pops)
+            what = f"w={w} n={n} b={bucket} [{q0}, {q1}) n_real={n_real}"
+            assert torch.equal(d.view(torch.int32), pd.view(torch.int32)), what
+            assert torch.equal(i, pi), what
+            calls += 1
+    assert getattr(kernels.tanimoto_bucket_topk, counter) == before + calls
+    for w, bucket in ((widest + 1, 64), (1, 4)):
+        p = torch.zeros((256, w), dtype=torch.int32, device=cuda)
+        assert not kernels.bucket_topk_serves(p, k, bucket)
+        with pytest.raises(ValueError, match="bucket_topk_max_words"):
+            kernels.tanimoto_bucket_topk(p, 0, 256, 256, k, bucket)
+
+
+@pytest.mark.gpu
+def test_cuda_bucket_topk_one_layer_against_split_qblocks(cuda):
+    """A 65,536-row layer in one launch (no scratch, so no split) equals
+    its q-blocks scanned with scratch for split columns and a merge, and
+    the twin; nothing of the call's scratch grows with the columns."""
+    n = 1 << 16
+    f = random_fingerprints(n, n_bits=1024, density=0.12, seed=9)
+    f[1::97] = f[0]
+    p = to_torch_packed(f, cuda)
+    pops = popcount_rows(p)
+    out = 2 * 64 * 4  # a row's distances and ids
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    d, i = kernels.tanimoto_bucket_topk(p, 0, n, n - 1000, 64, 64, pops=pops)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(cuda) - base <= n * out
+    for q0 in (0, n - 4096):
+        torch.cuda.reset_peak_memory_stats(cuda)
+        base = torch.cuda.memory_allocated(cuda)
+        bd, bi = kernels.tanimoto_bucket_topk(p, q0, q0 + 4096, n - 1000, 64,
+                                              64, pops=pops)
+        torch.cuda.synchronize()
+        assert 4096 * out < torch.cuda.max_memory_allocated(cuda) - base <= (
+            4096 * out + kernels._TOPK_SCRATCH_BYTES)
+        assert torch.equal(bd, d[q0:q0 + 4096]) and torch.equal(
+            bi, i[q0:q0 + 4096]), q0
+        pd, pi = kernels.tanimoto_bucket_topk_plain(
+            p, q0, q0 + 4096, n - 1000, 64, 64, pops=pops)
+        assert torch.equal(bd.view(torch.int32), pd.view(torch.int32))
+        assert torch.equal(bi, pi)
