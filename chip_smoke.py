@@ -65,7 +65,10 @@ Phases, one status line each (plus detail lines):
    ``rad_tpu_torch.bench_probe_sweep.one_build`` (``build_hnsw_exact``
    with probes 16 of 8192-row clusters, sample 16, qblock, unpadded,
    ``probe_min_n=0``), with both Tanimoto kernels launched and layer 0
-   probed (selection streamed into the scan), opened as
+   probed (selection streamed into the scan), under ``recording()``:
+   ``build.probe_qblocks`` the probed layers' q-blocks of 4,096 rows,
+   ``build.probe_bucket`` the ``tanimoto_bucketmin`` launches, 16 a
+   q-block (``probed_build_10m`` runs 6a and 6b alone); opened as
    ``HNSWIndex.from_graph``; (c) edge recall@10 and ``index.search``
    recall@10 at ef 32 and 128 over
    500 member queries against brute force (the blocked scan, whose first
@@ -344,6 +347,7 @@ from rad_tpu_torch.traverse import multi
 from rad_tpu_torch.traverse.coordinator import CoordinationService
 from rad_tpu_torch.traverse.driver import DeviceTraverser
 from rad_tpu_torch.traverse.workers import ScoringWorker
+from rad_tpu_torch.utils.profiling import recording
 
 # name -> wrapper, the wrapper attribute that counts its launches, source
 KERNELS = {
@@ -1616,7 +1620,9 @@ def _full_keep_ties(g, q, r, base, full: int, dev) -> None:
           + "; ".join(lines), flush=True)
 
 
-def phase_probed_10m(dev) -> dict:
+def probed_build_10m(dev):
+    """Phases 6a and 6b: the 10M library and its probed build, under
+    ``recording()``. Returns ``(packed, true_scores, graph)``."""
     t0 = time.perf_counter()
     packed, true_scores = make_library(N10, seed=0, batch=1 << 20)
     print(f"[6a library] {N10:,} x 1024-bit (make_library, batch 2^20): "
@@ -1626,16 +1632,29 @@ def phase_probed_10m(dev) -> dict:
     # (phase 13b evaluates this graph through the sweep's RecallEval)
     _reset_counts()
     stage = {}
-    g, t_build = bench_probe_sweep.one_build(
-        packed, "qblock", 16, None, csize=8192, probe_sample=16, seed=0,
-        device=dev, stage_times=stage)
+    with recording() as rec:
+        g, t_build = bench_probe_sweep.one_build(
+            packed, "qblock", 16, None, csize=8192, probe_sample=16, seed=0,
+            device=dev, stage_times=stage)
     launches = _counts("tanimoto_bucketmin", "tanimoto_matrix")
-    index = HNSWIndex.from_graph(g, device=dev)
     probed = stage["probed_layers"]
     for name, count in launches.items():
         check(count > 0, f"{name} never launched in the 10M probed build")
     _check_graph(g)
     check(0 in probed, f"layer 0 did not probe (probed layers {probed})")
+    # every probed layer scans its real q-blocks, each its 16 clusters
+    qblocks = sum(-(-g.layer_sizes[l] // 4096) for l in probed)
+    counters = {name: rec.counters.get(name, 0) for name in (
+        "build.probe_qblocks", "build.probe_bucket", "build.probe_matrix")}
+    check(counters["build.probe_qblocks"] == qblocks,
+          f"6b: build.probe_qblocks {counters['build.probe_qblocks']} for "
+          f"{qblocks} q-blocks of the probed layers {probed}")
+    check(counters["build.probe_bucket"]
+          == launches["tanimoto_bucketmin"] == 16 * qblocks
+          and counters["build.probe_matrix"] == 0,
+          f"6b: cluster scans {counters} against "
+          f"{launches['tanimoto_bucketmin']} tanimoto_bucketmin launches "
+          f"and 16 x {qblocks} probes")
     print(f"[6b probed build] bench_probe_sweep.one_build, {N10:,}, M=16, "
           f"probes 16 of 8192, qblock, "
           f"layers {g.layer_sizes}, probed layers {probed}: "
@@ -1643,7 +1662,13 @@ def phase_probed_10m(dev) -> dict:
           f"tables {stage['probe_tables']:.2f} s, candidates "
           f"{stage['candidates']:.2f} s, selection {stage['selection']:.2f}"
           f" s, symmetrization {stage['symmetrization']:.2f} s); launches "
-          f"{launches}", flush=True)
+          f"{launches}; counters {counters}", flush=True)
+    return packed, true_scores, g
+
+
+def phase_probed_10m(dev) -> dict:
+    packed, true_scores, g = probed_build_10m(dev)
+    index = HNSWIndex.from_graph(g, device=dev)
 
     qidx = np.random.default_rng(17).choice(N10, 500, replace=False)
     q = packed[qidx]

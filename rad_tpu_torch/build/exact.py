@@ -164,38 +164,47 @@ def _one_qblock_probed(packed_cl, pops_cl, perm_cl, cols, q0: int, k: int,
 
     A dead probe is skipped: its block is all masked, and merging an
     all-INF block after the running best changes nothing (the stable sort
-    keeps the running entries first)."""
-    dev = packed_cl.device
-    q = packed_cl[q0:q0 + q_block]
-    q_pops = pops_cl[q0:q0 + q_block]
-    q_pos = torch.arange(q0, q0 + q_block, dtype=torch.int32,
-                         device=dev)[:, None]
-    col_ids = torch.arange(csize, dtype=torch.int32, device=dev)
-    best_d = torch.full((q_block, k), INF, device=dev)
-    best_i = torch.full((q_block, k), -1, dtype=torch.int32, device=dev)
-    for ci in cols:
-        if ci < 0:
-            continue
-        c0 = ci * csize
-        db = packed_cl[c0:c0 + csize]
-        db_pops = pops_cl[c0:c0 + csize]
-        blk_perm = perm_cl[c0:c0 + csize]
-        if bucket is not None:
-            keys = tanimoto_bucketmin(q, db, bucket, q_pops, db_pops,
-                                      approx=approx)
-            blk_d, local = decode_bucket_keys(keys, bucket)
-            blk_pos = c0 + local
-            bad = (blk_perm[local.long()] < 0) | (blk_pos == q_pos)
-            blk_d = blk_d.masked_fill(bad, INF)
-            blk_i = blk_pos.masked_fill(bad, -1)
-        else:
-            d = tanimoto_matrix(q, db, q_pops, db_pops)
-            pos = (c0 + col_ids)[None, :]
-            d = d.masked_fill((blk_perm[None, :] < 0) | (pos == q_pos), INF)
-            blk_d, blk_i = _merge_topk(d, pos.expand(q_block, -1), k)
-        best_d, best_i = _merge_topk(torch.cat([best_d, blk_d], 1),
-                                     torch.cat([best_i, blk_i], 1), k)
-    return best_d, best_i
+    keeps the running entries first). The q-block is the span
+    ``build.probe_scan`` and counts ``build.probe_qblocks``; each cluster
+    it scans counts the path it took, ``build.probe_bucket`` or
+    ``build.probe_matrix``."""
+    count("build.probe_qblocks")
+    path = "build.probe_bucket" if bucket is not None else \
+        "build.probe_matrix"
+    with span("build.probe_scan"):
+        dev = packed_cl.device
+        q = packed_cl[q0:q0 + q_block]
+        q_pops = pops_cl[q0:q0 + q_block]
+        q_pos = torch.arange(q0, q0 + q_block, dtype=torch.int32,
+                             device=dev)[:, None]
+        col_ids = torch.arange(csize, dtype=torch.int32, device=dev)
+        best_d = torch.full((q_block, k), INF, device=dev)
+        best_i = torch.full((q_block, k), -1, dtype=torch.int32, device=dev)
+        for ci in cols:
+            if ci < 0:
+                continue
+            count(path)
+            c0 = ci * csize
+            db = packed_cl[c0:c0 + csize]
+            db_pops = pops_cl[c0:c0 + csize]
+            blk_perm = perm_cl[c0:c0 + csize]
+            if bucket is not None:
+                keys = tanimoto_bucketmin(q, db, bucket, q_pops, db_pops,
+                                          approx=approx)
+                blk_d, local = decode_bucket_keys(keys, bucket)
+                blk_pos = c0 + local
+                bad = (blk_perm[local.long()] < 0) | (blk_pos == q_pos)
+                blk_d = blk_d.masked_fill(bad, INF)
+                blk_i = blk_pos.masked_fill(bad, -1)
+            else:
+                d = tanimoto_matrix(q, db, q_pops, db_pops)
+                pos = (c0 + col_ids)[None, :]
+                d = d.masked_fill((blk_perm[None, :] < 0) | (pos == q_pos),
+                                  INF)
+                blk_d, blk_i = _merge_topk(d, pos.expand(q_block, -1), k)
+            best_d, best_i = _merge_topk(torch.cat([best_d, blk_d], 1),
+                                         torch.cat([best_i, blk_i], 1), k)
+        return best_d, best_i
 
 
 def _probed_blocks(packed_l, pops_l, n_real: int, k: int, q_block: int,
@@ -266,16 +275,19 @@ def _probed_layout(packed_l, pops_l, k: int, q_block: int, csize: int,
         raise ValueError(
             f"unknown probe_granularity {probe_granularity!r}")
     t0 = time.perf_counter()
-    perm = bisect_clusters(packed_host, csize, seed=seed, dev_rows=packed_l)
+    with span("build.bisection"):
+        perm = bisect_clusters(packed_host, csize, seed=seed,
+                               dev_rows=packed_l)
     t1 = time.perf_counter()
-    if probe_granularity == "qblock":
-        probe_tab = qblock_probes(packed_host, perm, csize, q_block, probes,
-                                  sample=probe_sample, seed=seed + 1,
-                                  device=dev)
-    else:
-        probe_tab = cluster_probes(packed_host, perm, csize, probes,
-                                   sample=probe_sample, seed=seed + 1,
-                                   device=dev)
+    with span("build.probe_tables"):
+        if probe_granularity == "qblock":
+            probe_tab = qblock_probes(packed_host, perm, csize, q_block,
+                                      probes, sample=probe_sample,
+                                      seed=seed + 1, device=dev)
+        else:
+            probe_tab = cluster_probes(packed_host, perm, csize, probes,
+                                       sample=probe_sample, seed=seed + 1,
+                                       device=dev)
     if probe_width is not None and probe_width > probe_tab.shape[1]:
         probe_tab = np.pad(probe_tab,
                            ((0, 0), (0, probe_width - probe_tab.shape[1])),
@@ -495,7 +507,9 @@ def build_hnsw_exact(
     probed layers under ``"probed_layers"``; the device is synchronized at each stage boundary
     for that. Inside :func:`rad_tpu_torch.utils.profiling.recording` the
     three stages are the spans ``build.candidates``, ``build.selection``
-    and ``build.symmetrization``.
+    and ``build.symmetrization``, and a probed layer's partition, probe
+    lists and q-block scans the spans ``build.bisection``,
+    ``build.probe_tables`` and ``build.probe_scan``.
     """
     bad = sorted(k for k in unported if k in _UNPORTED)
     if bad:

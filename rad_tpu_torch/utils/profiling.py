@@ -46,7 +46,13 @@ kernels it launches and nests in the span around it; :func:`count` adds to
   bucket scan (a big layer's, or a shard's span of it in the mesh build)
   by the path it took: the bucket top-k, or the column-block loop
   (buckets under 8 columns; on the card, k or the row width past the
-  kernel's instances).
+  kernel's instances); on a probed layer (:mod:`rad_tpu_torch.build.
+  probe`), spans ``build.bisection`` and ``build.probe_tables`` around
+  the partition and the probe lists, and ``build.probe_scan`` around each
+  q-block's loop over its probed clusters, with counters
+  ``build.probe_qblocks`` (once a q-block) and ``build.probe_bucket`` /
+  ``build.probe_matrix`` (once a cluster scanned, by the path it took:
+  the bucket kernel or the distance matrix).
 """
 
 from __future__ import annotations
